@@ -1,0 +1,64 @@
+"""Load a JAX-built index into the port.
+
+``index_from_jax_state`` takes what ``repro.core.search.InfinityIndex.
+snapshot_state()`` returns, with every array already turned into numpy by
+the caller (this package never imports JAX), and gives a port
+``InfinityIndex`` over the same X, Z, Phi and VP tree — so both packages
+can be held to one index.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import embedding as embed_lib
+from repro_torch.core import vptree as vptree_lib
+from repro_torch.core.search import IndexConfig, InfinityIndex
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def phi_from_params(params: Mapping[str, Any], device: torch.device) -> embed_lib.Phi:
+    """A ``Phi`` module from the JAX params tree: ``layers`` of {"w" (din,
+    dout), "b"}, plus the optional ``x_mean`` / ``x_std`` / ``d_scale``."""
+    layers = params["layers"]
+    dims = (np.asarray(layers[0]["w"]).shape[0],) + tuple(
+        np.asarray(layer["w"]).shape[1] for layer in layers
+    )
+    phi = embed_lib.Phi(dims).to(device)
+    with torch.no_grad():
+        for mod, layer in zip(phi.layers, layers):
+            mod.weight.copy_(torch.tensor(np.asarray(layer["w"], np.float32)).T)
+            mod.bias.copy_(torch.tensor(np.asarray(layer["b"], np.float32)))
+    for name in ("x_mean", "x_std", "d_scale"):
+        if name in params:
+            setattr(phi, name, torch.tensor(np.asarray(params[name], np.float32),
+                                               device=device))
+    return phi
+
+
+def index_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                         device: DeviceLike = None) -> InfinityIndex:
+    """``arrays``: {"X", "Z", "phi", "vantage", "mu", "left", "right"} as
+    numpy; ``statics``: {"config", "depth", "search_defaults"}.  Returns the
+    port index on ``device`` (default CUDA)."""
+    dev = resolve_device(device)
+    cfg = dict(statics["config"])
+    cfg["hidden"] = tuple(cfg["hidden"])
+    tree = vptree_lib.VPTree(
+        vantage=torch.tensor(np.asarray(arrays["vantage"], np.int32), device=dev),
+        mu=torch.tensor(np.asarray(arrays["mu"], np.float32), device=dev),
+        left=torch.tensor(np.asarray(arrays["left"], np.int32), device=dev),
+        right=torch.tensor(np.asarray(arrays["right"], np.int32), device=dev),
+        depth=int(statics["depth"]),
+    )
+    return InfinityIndex(
+        config=IndexConfig(**cfg),
+        X=torch.tensor(np.asarray(arrays["X"], np.float32), device=dev),
+        Z=torch.tensor(np.asarray(arrays["Z"], np.float32), device=dev),
+        phi=phi_from_params(arrays["phi"], dev),
+        tree=tree,
+        train_history={},
+        search_defaults=dict(statics.get("search_defaults") or {}),
+    )

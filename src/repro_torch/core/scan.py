@@ -1,0 +1,110 @@
+"""Batched scan engine: k-nearest selection without the (m, n) matrix —
+port of ``repro.core.scan``.
+
+Contract (shared with the JAX package): dists (m, k) f32 ascending, idxs
+(m, k) int32, ties to the lowest index, (+inf, -1) past the valid
+candidates.  ``topk_scan`` goes through ``kernels/topk`` for the metrics
+that have a kernel (the CUDA kernel on the card, its blocked plain version
+on the CPU) and through the same blocked merge over the metric's matrix
+form for jaccard and correlation.
+
+``torch.topk`` does not reproduce ``lax.top_k``'s lowest-index tie order,
+so every selection here is a STABLE sort of [running best, new], which
+keeps the earlier entry on ties.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import metrics as metrics_lib
+from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, blocked_topk
+
+INF = float("inf")
+
+__all__ = ["DEFAULT_BLOCK", "pow2ceil", "topk_scan", "merge_topk",
+           "topk_candidates"]
+
+
+def pow2ceil(x: int) -> int:
+    """Smallest power of two >= x (the repo-wide width-bucketing rule)."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p
+
+
+def topk_scan(
+    Q: torch.Tensor,
+    Y: torch.Tensor,
+    *,
+    k: int,
+    metric: str = "euclidean",
+    exclude_self: bool = False,
+    valid: Optional[torch.Tensor] = None,
+    block: int = DEFAULT_BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest rows of Y for every row of Q, streaming over Y.
+
+    Q (m, d), Y (n, d) -> (dists (m, k), idxs (m, k)).  ``exclude_self``
+    masks global_row == global_col (Q must be Y row-aligned); ``valid``
+    (n,) bool masks candidates out."""
+    if metric in topk_ops.SUPPORTED:
+        return topk_ops.topk(Q, Y, k=k, metric=metric, exclude_self=exclude_self,
+                             valid=valid, block=block)
+    return blocked_topk(
+        Q.float(), Y.float(), k=k, dist_fn=metrics_lib.matrix_fn(metric),
+        exclude_self=exclude_self, valid=valid, block=block,
+    )
+
+
+def merge_topk(
+    dists: torch.Tensor, idxs: torch.Tensor, *, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge (B, S, kk) per-source top-k lists (sources in ascending-offset
+    order, each obeying the scan contract) into one (B, k) top-k.  A stable
+    sort over the sources' concatenation keeps earlier sources first on
+    ties — the lowest global index, as the JAX running merge does."""
+    B = dists.shape[0]
+    cat_d = torch.cat(
+        [torch.full((B, k), INF, dtype=torch.float32, device=dists.device),
+         dists.reshape(B, -1).float()], dim=1)
+    cat_i = torch.cat(
+        [torch.full((B, k), -1, dtype=torch.int64, device=dists.device),
+         idxs.reshape(B, -1).long()], dim=1)
+    order = torch.sort(cat_d, dim=1, stable=True).indices[:, :k]
+    best_d = cat_d.gather(1, order)
+    best_i = torch.where(torch.isinf(best_d), -1, cat_i.gather(1, order))
+    return best_d, best_i.to(torch.int32)
+
+
+def topk_candidates(
+    Q: torch.Tensor,
+    cand: torch.Tensor,
+    X: torch.Tensor,
+    *,
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over gathered candidate lists, batched.
+
+    Q (B, d), cand (B, C) dataset ids with -1 padding, X (n, d) -> (idx
+    (B, k) int32 dataset ids or -1, dists (B, k) ascending).  The batched
+    form of the JAX package's per-query ``topk_candidates`` under ``vmap``:
+    rows are gathered, scored with the metric's matrix form, and selected
+    with a stable sort, so ties go to the earlier candidate position."""
+    k = int(k)
+    cand = cand.long()
+    B, C = cand.shape
+    G = X[cand.clamp_min(0)].float()  # (B, C, d)
+    D = metrics_lib.matrix_fn(metric)(Q.float()[:, None, :], G)[:, 0, :]
+    D = torch.where(cand >= 0, D, INF)
+    if C < k:
+        D = torch.cat([D, torch.full((B, k - C), INF, device=D.device)], dim=1)
+    order = torch.sort(D, dim=1, stable=True).indices[:, :k]
+    dists = D.gather(1, order)
+    ids = cand.gather(1, order.clamp_max(C - 1))
+    idx = torch.where(torch.isinf(dists), -1, ids)
+    return idx.to(torch.int32), dists

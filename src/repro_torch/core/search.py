@@ -1,0 +1,340 @@
+"""InfinitySearch — the paper's end-to-end pipeline (Fig. 18), port of
+``repro.core.search``.
+
+Build: sample the projection subset S; exact kNN graph of S (``topk``
+kernel); dense dissimilarity on S (``pdist`` kernel); sparse canonical
+q-projection by path doubling (``qpath`` kernel); fit Phi; embed X; build
+the VP tree over the embedding.
+
+Search: embed the queries, then Theorem-1 descent (q = inf, k = 1, no
+rerank), the beam over the flattened tree (batches of
+``AUTO_BEAM_MIN_BATCH`` or more) or best-first, then rerank the candidates
+in the ORIGINAL metric (two-stage search, App. F.5) with a gather, the
+metric's matrix form and a stable sort.
+
+On a CUDA device the three kernels are the default; the CPU runs their
+plain versions.  Filters, the int8 prefilter and telemetry are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import embedding as embed_lib
+from repro_torch.core import index as index_lib
+from repro_torch.core import knn_graph as knn_lib
+from repro_torch.core import metrics as metrics_lib
+from repro_torch.core import qmetric
+from repro_torch.core import quant as quant_lib
+from repro_torch.core import scan as scan_lib
+from repro_torch.core import vptree as vptree_lib
+from repro_torch.core.index import SearchResult
+from repro_torch.device import DeviceLike, resolve_device, sync
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    q: float = math.inf
+    metric: str = "euclidean"  # original dissimilarity
+    # sparse projection
+    knn_k: int = 16
+    num_hops: int = 6  # doubling schedule: paths up to 2^num_hops edges
+    extra_links: int = 2  # random long-range edges per node (connectivity)
+    proj_sample: int = 2048
+    # embedding operator
+    embed_dim: int = 32
+    hidden: tuple[int, ...] = (256, 256)
+    train_steps: int = 2000
+    batch_pairs: int = 1024
+    lr: float = 1e-3
+    alpha_t: float = 0.0
+    dropout: float = 0.0
+    local_frac: float = 0.5
+    stress_weight: str = "sammon"
+    # embedding validation (held-out pairs vs the canonical projection)
+    val_pairs: int = 1024
+    val_target: float = 0.0  # 0 = always accept the first fit
+    max_retrain: int = 2
+    # beam traversal (flattened tree)
+    leaf_size: int = 16
+    # misc
+    seed: int = 0
+    #: kept so JAX configs load; the port dispatches by device instead
+    impl: str = "jnp"
+
+
+#: ``mode='auto'`` batch threshold: batches at least this large take the
+#: beam traversal, smaller ones best-first
+AUTO_BEAM_MIN_BATCH = 64
+
+SEARCH_KEYS = ("mode", "budget", "max_comparisons", "rerank", "beam_width",
+               "bucket_cap")
+
+
+class _StageClock:
+    """Seconds per build stage, the device synchronised at each boundary."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        sync(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
+@index_lib.register_index("infinity")
+@dataclasses.dataclass
+class InfinityIndex:
+    """The paper's pipeline: sparse q-metric projection, learned embedding
+    Phi, VP-tree search in embedding space, two-stage original-metric
+    rerank."""
+
+    config: IndexConfig
+    X: torch.Tensor  # (n, d) original vectors
+    Z: torch.Tensor  # (n, s) embedded vectors
+    phi: embed_lib.Phi
+    tree: vptree_lib.VPTree
+    train_history: dict
+    search_defaults: dict = dataclasses.field(default_factory=dict)
+    #: lazily-built beam state: {"flat": FlatVPTree, "Zf": Z[perm]}
+    _flat: Optional[dict] = dataclasses.field(default=None, repr=False, compare=False)
+
+    # ------------------------------------------------------------------ build
+    @classmethod
+    def registry_build(cls, X, cfg=None, *, device: DeviceLike = None) -> "InfinityIndex":
+        """Registry entry: cfg is an ``IndexConfig`` or a mapping whose keys
+        split into IndexConfig fields and search defaults."""
+        if isinstance(cfg, IndexConfig):
+            return cls.build(X, cfg, device=device)
+        cfg = dict(cfg or {})
+        sdef = {k: cfg.pop(k) for k in SEARCH_KEYS if k in cfg}
+        fields = {f.name for f in dataclasses.fields(IndexConfig)}
+        unknown = set(cfg) - fields
+        if unknown:
+            raise TypeError(f"infinity: unknown cfg keys {sorted(unknown)}")
+        idx = cls.build(X, IndexConfig(**cfg), device=device)
+        idx.search_defaults = sdef
+        return idx
+
+    @classmethod
+    def build(cls, X, config: IndexConfig = IndexConfig(), *,
+              device: DeviceLike = None) -> "InfinityIndex":
+        """Build the index on ``device`` (default CUDA).
+        ``train_history["stage_seconds"]`` records each stage's wall time."""
+        dev = resolve_device(device)
+        clock = _StageClock(dev)
+        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        n = X.shape[0]
+        rng = np.random.default_rng(config.seed)
+
+        # 1) projection subset
+        if n > config.proj_sample:
+            sub = np.sort(rng.choice(n, size=config.proj_sample, replace=False))
+            S = X[torch.as_tensor(sub, device=dev)]
+        else:
+            S = X
+        clock.lap("subset")
+
+        # 2) sparse canonical projection on the subset, with a few random
+        # long-range links per node for connectivity
+        ns = S.shape[0]
+        idx, _ = knn_lib.knn_graph(S, k=min(config.knn_k, ns - 1), metric=config.metric)
+        mask = knn_lib.knn_mask(idx, ns)
+        if config.extra_links > 0:
+            links = torch.as_tensor(
+                rng.integers(0, ns, size=(ns, config.extra_links)), device=dev
+            )
+            mask = mask | knn_lib.knn_mask(links, ns)
+        clock.lap("knn_graph")
+        D = metrics_lib.pairwise(S, S, metric=config.metric)
+        D = torch.where(torch.eye(ns, dtype=torch.bool, device=dev), 0.0, D)
+        clock.lap("pdist")
+        Dq = qmetric.sparse_canonical_projection(
+            D, mask, config.q, num_hops=config.num_hops, schedule="doubling",
+        )
+        clock.lap("projection")
+
+        # 3) fit Phi, validate it on held-out pairs, retrain while it misses
+        # the configured neighbour-overlap target (the best attempt wins)
+        ecfg = embed_lib.EmbedConfig(
+            in_dim=X.shape[1], out_dim=config.embed_dim, hidden=config.hidden,
+            dropout=config.dropout, q=config.q, lr=config.lr,
+            steps=config.train_steps, batch_pairs=config.batch_pairs,
+            alpha_t=config.alpha_t, seed=config.seed,
+            local_frac=config.local_frac, weight=config.stress_weight,
+        )
+        phi, history = embed_lib.train_embedding(S, Dq, ecfg, knn_idx=idx,
+                                                 log_every=100)
+        val = _phi_validation(phi, S, Dq, config)
+        attempts = 1
+        while val["nn_overlap10"] < config.val_target and attempts <= config.max_retrain:
+            ecfg2 = dataclasses.replace(ecfg, seed=config.seed + 1000 * attempts)
+            phi2, hist2 = embed_lib.train_embedding(S, Dq, ecfg2, knn_idx=idx,
+                                                    log_every=100)
+            val2 = _phi_validation(phi2, S, Dq, config)
+            if val2["nn_overlap10"] > val["nn_overlap10"]:
+                phi, history, val = phi2, hist2, val2
+            attempts += 1
+        history["validation"] = dict(val, attempts=attempts)
+        clock.lap("train_phi")
+
+        # 4) embed the full dataset, build the VP tree in embedding space
+        Z = embed_lib.apply(phi, X)
+        clock.lap("embed")
+        tree = vptree_lib.build_vptree(Z.cpu().numpy(), metric="euclidean",
+                                       seed=config.seed, device=dev)
+        clock.lap("vptree")
+        history["stage_seconds"] = clock.seconds
+        return cls(config=config, X=X, Z=Z, phi=phi, tree=tree,
+                   train_history=history)
+
+    # ----------------------------------------------------------------- search
+    def search(
+        self,
+        Q,
+        k: int = 1,
+        *,
+        mode: Optional[str] = None,
+        max_comparisons: Optional[int] = None,
+        rerank: Optional[int] = None,
+        budget: Optional[int] = None,
+        beam_width: Optional[int] = None,
+        bucket_cap: Optional[int] = None,
+    ) -> SearchResult:
+        """Returns ``SearchResult``: indices (B, k) int32, distances (B, k)
+        in the ORIGINAL metric (ascending), comparisons (B,) int32.
+
+        mode: 'descend' (Theorem-1 single path), 'best_first' (Algorithm 2),
+        'beam' (level-synchronous traversal of the flattened tree), or
+        'auto' = descend for q=inf & k==1 & no rerank, beam for batches of
+        at least ``AUTO_BEAM_MIN_BATCH`` queries, else best_first.
+        budget: alias of ``max_comparisons`` (a plan for the beam, a gate
+        for best-first).  rerank: two-stage width K (0 = off); each
+        reranked candidate counts as one comparison."""
+        sd = self.search_defaults
+        mode = index_lib.resolve(mode, sd, "mode", "auto")
+        if max_comparisons is None:
+            budget = index_lib.resolve(budget, sd, "budget")
+            max_comparisons = budget if budget is not None else (sd or {}).get("max_comparisons")
+        rerank = int(index_lib.resolve(rerank, sd, "rerank", 0))
+        beam_width = index_lib.resolve(beam_width, sd, "beam_width")
+        bucket_cap = index_lib.resolve(bucket_cap, sd, "bucket_cap")
+        Q = torch.as_tensor(Q, dtype=torch.float32, device=self.X.device)
+        Zq = embed_lib.apply(self.phi, Q)
+        K = max(k, rerank)
+        if self._use_descend(mode, self.config.q, K):
+            bi, _, comps = vptree_lib.descend_infty(self.tree, Zq, X=self.Z,
+                                                    metric="euclidean")
+            idx = bi[:, None]
+        elif self._use_beam(mode, Q.shape[0]):
+            if rerank:
+                # the beam reaches whole buckets: widen the shortlist to at
+                # least the 8x-k rule
+                K = max(K, quant_lib.shortlist_width(k, self.X.shape[0], mult=8))
+            flat, Zf = self._flat_view()
+            idx, _, comps = vptree_lib.search_beam(
+                flat, Zq, q=self.config.q, k=K, X=Zf, metric="euclidean",
+                max_comparisons=None if max_comparisons is None else int(max_comparisons),
+                beam_width=beam_width, bucket_cap=bucket_cap,
+            )
+        else:
+            idx, _, comps = vptree_lib.search_best_first(
+                self.tree, Zq, q=self.config.q, k=K, X=self.Z, metric="euclidean",
+                max_comparisons=max_comparisons,
+            )
+        if rerank and K > k:
+            idx, dists = self._rerank(Q, idx, k)
+            comps = comps + K
+        else:
+            # the k survivors are scored in the ORIGINAL metric and returned
+            # ascending; comps keeps counting tree visits only
+            idx, dists = self._rerank(Q, idx[:, :k], k)
+        return SearchResult(idx, dists, comps.int())
+
+    @staticmethod
+    def _use_descend(mode: str, q: float, K: int) -> bool:
+        return mode == "descend" or (mode == "auto" and math.isinf(q) and K == 1)
+
+    @staticmethod
+    def _use_beam(mode: str, batch: int) -> bool:
+        return mode == "beam" or (mode == "auto" and batch >= AUTO_BEAM_MIN_BATCH)
+
+    def _flat_view(self):
+        """The lazily-built beam state: the flattened tree and the
+        layout-ordered embedding rows.  ``refresh`` returns a new instance,
+        which resets it."""
+        if self._flat is None:
+            flat = vptree_lib.flatten_vptree(
+                self.tree, leaf_size=self.config.leaf_size,
+                Z=self.Z.cpu().numpy(), metric="euclidean",
+            )
+            self._flat = {"flat": flat, "Zf": self.Z[flat.perm.long()]}
+        return self._flat["flat"], self._flat["Zf"]
+
+    def _rerank(self, Q: torch.Tensor, idx: torch.Tensor, k: int):
+        """Specific search (F.5): original-metric distances to the
+        candidates, the best k kept."""
+        return scan_lib.topk_candidates(Q, idx, self.X, k=int(k),
+                                        metric=self.config.metric)
+
+    # --------------------------------------------------------------- refresh
+    def refresh(self, X, *, Z: Optional[torch.Tensor] = None) -> "InfinityIndex":
+        """New index over a changed corpus WITHOUT retraining Phi: embed the
+        rows (unless ``Z`` is given) and rebuild the VP tree."""
+        dev = self.X.device
+        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        Z = embed_lib.apply(self.phi, X) if Z is None else torch.as_tensor(Z, device=dev)
+        tree = vptree_lib.build_vptree(Z.cpu().numpy(), metric="euclidean",
+                                       seed=self.config.seed, device=dev)
+        return InfinityIndex(
+            config=self.config, X=X, Z=Z, phi=self.phi, tree=tree,
+            train_history=self.train_history,
+            search_defaults=dict(self.search_defaults),
+        )
+
+
+def _phi_validation(phi, S: torch.Tensor, Dq: torch.Tensor, config: IndexConfig) -> dict:
+    """Held-out check that Phi reproduces the canonical projection's
+    geometry (host numpy, as in the JAX package): Pearson correlation of
+    embedding vs projected distances on ``val_pairs`` random finite pairs,
+    and the mean top-10 neighbour overlap over up to 64 anchors."""
+    ZS = embed_lib.apply(phi, S).cpu().numpy()
+    Dq = Dq.cpu().numpy()
+    ns = ZS.shape[0]
+    rng = np.random.default_rng(config.seed + 17)
+    npairs = max(int(config.val_pairs), 1)
+    ii = rng.integers(0, ns, size=npairs)
+    jj = rng.integers(0, ns, size=npairs)
+    keep = (ii != jj) & np.isfinite(Dq[ii, jj])
+    ii, jj = ii[keep], jj[keep]
+    corr = 0.0
+    if ii.size >= 2:
+        e = np.sqrt(np.maximum(((ZS[ii] - ZS[jj]) ** 2).sum(-1), 0.0))
+        t = Dq[ii, jj]
+        if e.std() > 1e-12 and t.std() > 1e-12:
+            corr = float(np.corrcoef(e, t)[0, 1])
+    anchors = rng.choice(ns, size=min(64, ns), replace=False)
+    kk = min(10, ns - 1)
+    overlap = 0.0
+    for a in anchors:
+        row = Dq[a].copy()
+        row[a] = np.inf
+        row = np.where(np.isfinite(row), row, np.inf)
+        true_nn = np.argpartition(row, kk - 1)[:kk]
+        erow = np.sqrt(np.maximum(((ZS - ZS[a]) ** 2).sum(-1), 0.0))
+        erow[a] = np.inf
+        est_nn = np.argpartition(erow, kk - 1)[:kk]
+        overlap += len(set(true_nn.tolist()) & set(est_nn.tolist())) / kk
+    overlap /= max(len(anchors), 1)
+    return {"pair_corr": corr, "nn_overlap10": float(overlap),
+            "val_pairs": int(ii.size)}

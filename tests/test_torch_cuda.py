@@ -1,0 +1,203 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device: the ``cuda`` fixture decides, and
+skips without one (never at import, so every xdist worker collects the same
+tests).  Run on a card with ``pytest -m gpu tests/test_torch_cuda.py``.
+Tolerances: matmul-family distances rtol 1e-5 / atol 5e-4 (the JAX kernel
+tests' atol); ids identical except on near ties; minmax and minplus
+bit-identical; logminplus atol 1e-5.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import index as index_lib  # noqa: E402
+from repro_torch.core import qmetric  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.pdist.pdist import pdist_cuda  # noqa: E402
+from repro_torch.kernels.pdist.ref import pdist_ref  # noqa: E402
+from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda  # noqa: E402
+from repro_torch.kernels.qpath.ref import qpath_matmul_ref  # noqa: E402
+from repro_torch.kernels.topk.ref import topk_ref  # noqa: E402
+from repro_torch.kernels.topk.topk import topk_cuda  # noqa: E402
+from torch_parity import assert_same_ids  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+MATMUL = ["sqeuclidean", "euclidean", "cosine", "dot"]
+QPATH_SHAPES = [(32, 48, 16), (128, 128, 128), (130, 70, 257), (8, 300, 9)]
+MODES = ["minplus", "minmax", "logminplus"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+
+
+def test_build_reports_every_kernel(cuda):
+    info = _build.build()
+    for name in ("pdist_kernel", "topk_kernel", "qpath_kernel"):
+        assert name in info["ptxas"]
+
+
+@pytest.mark.parametrize("shape", [(40, 56, 20), (128, 128, 64), (33, 257, 100),
+                                   (2048, 2048, 784)])
+@pytest.mark.parametrize("metric", MATMUL)
+def test_pdist_kernel_matches_plain(cuda, shape, metric):
+    m, n, d = shape
+    X, Y = _normal((m, d), 1, cuda), _normal((n, d), 2, cuda)
+    before = _build.launches()["pdist"]
+    out = pdist_cuda(X, Y, metric=metric)
+    torch.cuda.synchronize()
+    assert _build.launches()["pdist"] == before + 1
+    ref = pdist_ref(X, Y, metric=metric)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=5e-4)
+
+
+def test_pdist_cube_metrics_not_ported(cuda):
+    X = _normal((4, 3), 0, cuda)
+    with pytest.raises(NotImplementedError, match="_cube_kernel"):
+        pdist_cuda(X, X, metric="manhattan")
+
+
+@pytest.mark.parametrize("metric", MATMUL)
+def test_topk_kernel_all_metrics(cuda, metric):
+    X, Y = _normal((40, 24), 1, cuda), _normal((300, 24), 2, cuda)
+    od, oi = topk_cuda(X, Y, k=10, metric=metric)
+    rd, ri = topk_ref(X, Y, k=10, metric=metric)
+    assert_same_ids(oi, od, ri, rd)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (33, 257, 20, 5), (130, 129, 7, 17),
+                                   (8, 4096, 128, 64), (70, 500, 16, 128)])
+def test_topk_kernel_ragged_shapes(cuda, shape):
+    m, n, d, k = shape
+    X, Y = _normal((m, d), 3, cuda), _normal((n, d), 4, cuda)
+    od, oi = topk_cuda(X, Y, k=k, metric="sqeuclidean")
+    rd, ri = topk_ref(X, Y, k=k, metric="sqeuclidean")
+    assert_same_ids(oi, od, ri, rd)
+
+
+def test_topk_kernel_k_exceeds_n(cuda):
+    X, Y = _normal((6, 4), 5, cuda), _normal((10, 4), 6, cuda)
+    d, i = topk_cuda(X, Y, k=25, metric="euclidean")
+    rd, ri = topk_ref(X, Y, k=25, metric="euclidean")
+    assert torch.isinf(d[:, 10:]).all() and (i[:, 10:] == -1).all()
+    assert torch.equal(i.cpu(), ri.cpu())
+
+
+def test_topk_kernel_ties_pick_lowest_index(cuda):
+    base = np.random.default_rng(4).normal(size=(20, 8)).astype(np.float32)
+    Y = torch.as_tensor(np.concatenate([base] * 3), device=cuda)
+    X = torch.as_tensor(base[:7], device=cuda)
+    d, i = topk_cuda(X, Y, k=9, metric="sqeuclidean")
+    rd, ri = topk_ref(X, Y, k=9, metric="sqeuclidean")
+    # exact duplicates tie exactly in both: the lowest copy comes first
+    assert (i[:, :3].cpu().numpy() == np.arange(7)[:, None] + np.array([0, 20, 40])).all()
+    assert torch.equal(i[:, :3].cpu(), ri[:, :3].cpu())
+
+
+def test_topk_kernel_exclude_self_and_valid(cuda):
+    X = _normal((64, 8), 7, cuda)
+    valid = torch.as_tensor(np.arange(64) % 3 != 0, device=cuda)
+    od, oi = topk_cuda(X, X, k=5, metric="euclidean", exclude_self=True, valid=valid)
+    rd, ri = topk_ref(X, X, k=5, metric="euclidean", exclude_self=True, valid=valid)
+    assert_same_ids(oi, od, ri, rd)
+    ids = oi.cpu().numpy()
+    assert not np.isin(ids, np.arange(0, 64, 3)).any()
+    assert (ids != np.arange(64)[:, None]).all()
+    d, i = topk_cuda(X[:5], X[:5], k=5, metric="sqeuclidean", exclude_self=True)
+    assert (i[:, -1] == -1).all() and torch.isinf(d[:, -1]).all()
+
+
+def test_topk_kernel_rejects_large_k_and_cube(cuda):
+    X = _normal((4, 3), 0, cuda)
+    with pytest.raises(ValueError, match="k <= 128"):
+        topk_cuda(X, X, k=129)
+    with pytest.raises(NotImplementedError, match="_cube_kernel"):
+        topk_cuda(X, X, k=2, metric="chebyshev")
+
+
+@pytest.mark.parametrize("shape", QPATH_SHAPES + [(2048, 2048, 2048)])
+@pytest.mark.parametrize("mode", MODES)
+def test_qpath_kernel_matches_plain(cuda, shape, mode):
+    m, k, n = shape
+    rng = np.random.default_rng([*shape, MODES.index(mode)])
+    A = torch.as_tensor(rng.uniform(0.05, 4.0, size=(m, k)).astype(np.float32), device=cuda)
+    B = torch.as_tensor(rng.uniform(0.05, 4.0, size=(k, n)).astype(np.float32), device=cuda)
+    A[torch.as_tensor(rng.random((m, k)) < 0.3, device=cuda)] = math.inf
+    out = qpath_matmul_cuda(A, B, mode=mode)
+    ref = qpath_matmul_ref(A, B, mode=mode)
+    torch.cuda.synchronize()
+    if mode == "logminplus":
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_qpath_kernel_infinities(cuda, mode):
+    inf = math.inf
+    A = torch.tensor([[0.0, inf], [1.0, 2.0]], device=cuda)
+    B = torch.tensor([[0.5, inf], [inf, 1.0]], device=cuda)
+    np.testing.assert_allclose(qpath_matmul_cuda(A, B, mode=mode).cpu().numpy(),
+                               qpath_matmul_ref(A, B, mode=mode).cpu().numpy(), atol=1e-5)
+    # a log-domain edge matrix: -inf diagonal (q log 0), +inf off-graph
+    L = torch.tensor([[-inf, 1.0, inf], [1.0, -inf, 2.0], [inf, 2.0, -inf]], device=cuda)
+    out = qpath_matmul_cuda(L, L, mode="logminplus")
+    ref = qpath_matmul_ref(L, L, mode="logminplus")
+    assert not torch.isnan(out).any()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+
+
+def test_projection_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(0)
+    Xn = rng.normal(size=(96, 6)).astype(np.float32)
+    D = torch.cdist(torch.as_tensor(Xn), torch.as_tensor(Xn))
+    D.fill_diagonal_(0.0)
+    mask = torch.as_tensor(rng.random((96, 96)) < 0.1)
+    for q in (2.0, math.inf):
+        cpu = qmetric.sparse_canonical_projection(D, mask, q, num_hops=5,
+                                                  schedule="doubling")
+        gpu = qmetric.sparse_canonical_projection(D.to(cuda), mask.to(cuda), q,
+                                                  num_hops=5, schedule="doubling")
+        np.testing.assert_allclose(gpu.cpu().numpy(), cpu.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_version(cuda):
+    from repro_torch.kernels.pdist.ops import pdist
+
+    before = _build.launches()
+    X = torch.ones((3, 2))
+    pdist(X, X, metric="euclidean")
+    assert _build.launches() == before
+
+
+def test_small_index_build_launches_every_kernel(cuda):
+    X = synthetic.make("manifold", 600, seed=1)
+    _build.reset_launches()
+    index = index_lib.build("infinity", X, {
+        "q": 2.0, "proj_sample": 256, "knn_k": 8, "num_hops": 4, "embed_dim": 16,
+        "hidden": (64,), "train_steps": 50, "batch_pairs": 256,
+    }, device=cuda)
+    counts = _build.launches()
+    assert counts == {"pdist": 1, "topk": 1, "qpath/minplus": 0, "qpath/minmax": 0,
+                      "qpath/logminplus": 4}
+    res = index.search(X[:80], k=5, rerank=32, budget=512)
+    torch.cuda.synchronize()
+    assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
+    assert (res.dist[:, 1:] >= res.dist[:, :-1]).all()
