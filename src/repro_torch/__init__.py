@@ -6,7 +6,8 @@ This package imports ``torch``, numpy and the standard library only — never
 ``jax`` and never anything under ``repro``.
 
 Entry points (``core.search.InfinityIndex.build``, ``core.index.build``,
-``convert.index_from_jax_state``) take ``device=`` and default to CUDA; see
+``core.baselines.BruteIndex.build``, ``core.quant.QuantStore.build`` and
+the loaders in ``convert``) take ``device=`` and default to CUDA; see
 ``device.py``.  The hand-written Hopper kernels live in ``csrc/`` and are
 bound in ``kernels/``.
 """

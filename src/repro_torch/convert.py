@@ -1,10 +1,14 @@
-"""Load a JAX-built index into the port.
+"""Load JAX-built state into the port.
 
-``index_from_jax_state`` takes what ``repro.core.search.InfinityIndex.
-snapshot_state()`` returns, with every array already turned into numpy by
-the caller (this package never imports JAX), and gives a port
-``InfinityIndex`` over the same X, Z, Phi and VP tree — so both packages
-can be held to one index.
+Each function takes what the JAX object's ``snapshot_state()`` returns,
+with every array already turned into numpy by the caller (this package
+never imports JAX), and gives the port's object over the same state — so
+both packages can be held to one index:
+
+* ``index_from_jax_state`` — ``InfinityIndex`` (X, Z, Phi, VP tree);
+* ``brute_from_jax_state`` — ``BruteIndex``;
+* ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
+  the squared norms are recomputed, as every store derives them).
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import embedding as embed_lib
+from repro_torch.core import quant as quant_lib
+from repro_torch.core.baselines import BruteIndex
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
@@ -62,3 +68,17 @@ def index_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], 
         train_history={},
         search_defaults=dict(statics.get("search_defaults") or {}),
     )
+
+
+def brute_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                         device: DeviceLike = None) -> BruteIndex:
+    """``arrays``: {"X"} as numpy; ``statics``: {"metric", "impl", "block",
+    "search_defaults"}.  Returns the port ``BruteIndex`` on ``device``."""
+    return BruteIndex.from_snapshot(arrays, statics, device=device)
+
+
+def quant_store_from_jax(arrays: Mapping[str, Any], *,
+                         device: DeviceLike = None) -> quant_lib.QuantStore:
+    """``arrays``: {"codes", "scales"} as numpy.  Returns the port store
+    whose views go to ``device``."""
+    return quant_lib.QuantStore.from_snapshot(arrays, {}, device=device)

@@ -1,2 +1,3 @@
 """Core engine of the port: metrics, scan, projection, embedding, VP tree,
-index protocol and the InfinitySearch pipeline (``search``)."""
+int8 quantisation, index protocol, the exact brute engine (``baselines``)
+and the InfinitySearch pipeline (``search``)."""

@@ -1,15 +1,17 @@
-"""Index protocol and registry — the part of ``repro.core.index`` this
-slice needs: ``SearchResult``, ``register_index``, ``build`` and
-``resolve``.  The reserved cfg keys ``attrs``, ``quant`` and ``chaos``
-(attribute filters, the int8 store, fault injection) and ``ShardedIndex``
-are not ported yet.
+"""Index protocol and registry — the part of ``repro.core.index`` the port
+serves: ``SearchResult``, ``register_index``, ``build`` with the reserved
+``quant`` key, ``attach_quant_store``, the memory audit helpers and
+``resolve``.  The reserved keys ``attrs`` and ``chaos`` (attribute
+filters, fault injection) and ``ShardedIndex`` are not ported yet.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import quant as quant_lib
 from repro_torch.device import DeviceLike
 
 
@@ -22,14 +24,15 @@ class SearchResult(NamedTuple):
 
 
 _REGISTRY: dict[str, type] = {}
-RESERVED = ("attrs", "quant", "chaos")
+#: reserved cfg keys the port does not serve yet (``quant`` it does)
+UNPORTED = ("attrs", "chaos")
 
 
 def register_index(name: str):
     """Class decorator: expose an engine under a stable string key."""
 
     def deco(cls):
-        for attr in ("build", "search"):
+        for attr in ("build", "search", "memory_bytes"):
             if not hasattr(cls, attr):
                 raise TypeError(f"{cls.__name__} lacks Index.{attr}")
         cls.registry_name = name
@@ -41,6 +44,7 @@ def register_index(name: str):
 
 def _ensure_builtin() -> None:
     # engines self-register at module load
+    import repro_torch.core.baselines  # noqa: F401
     import repro_torch.core.search  # noqa: F401
 
 
@@ -61,15 +65,82 @@ def build(name: str, X, cfg: Optional[Mapping[str, Any]] = None, *,
           device: DeviceLike = None):
     """Build a registered engine from one config mapping on ``device``
     (default CUDA).  Keys the engine's build does not take become its
-    search defaults (the engine's ``registry_build`` splits them)."""
+    search defaults.
+
+    The reserved key ``quant`` (truthy) quantizes the corpus to int8 codes
+    (``core/quant.QuantStore``) and attaches the store
+    (``attach_quant_store``): brute then scans codes first and reranks a
+    ``quant.shortlist_width``-wide shortlist exactly; infinity scans its
+    beam buckets on codes and prefilters its rerank on them."""
     cls = get_index(name)
     cfg = dict(cfg or {})
-    for key in RESERVED:
+    for key in UNPORTED:
         if cfg.get(key) is not None:
             raise NotImplementedError(
                 f"registry key {key!r} is not ported to repro_torch yet"
             )
-    return cls.registry_build(X, cfg, device=device)
+    quant_cfg = cfg.pop("quant", None)
+    hook = getattr(cls, "registry_build", None)
+    if hook is not None:
+        inst = hook(X, cfg, device=device)
+    else:
+        inst = generic_registry_build(cls, X, cfg, device=device)
+    if quant_cfg:
+        attach_quant_store(inst, quant_lib.QuantStore.build(inst.X))
+    return inst
+
+
+def generic_registry_build(cls, X, cfg: Optional[Mapping[str, Any]], *,
+                           device: DeviceLike = None):
+    """Split ``cfg`` against the engine's ``build`` / ``search`` signatures:
+    build keys configure construction, search keys become the instance's
+    search defaults."""
+    cfg = dict(cfg or {})
+    bkeys = set(inspect.signature(cls.build).parameters) - {"cls", "X", "device"}
+    skeys = (set(inspect.signature(cls.search).parameters) - {"self", "Q", "k"}) | {"budget"}
+    bkw = {k: cfg.pop(k) for k in list(cfg) if k in bkeys}
+    skw = {k: cfg.pop(k) for k in list(cfg) if k in skeys}
+    if cfg:
+        raise TypeError(
+            f"{cls.registry_name}: unknown cfg keys {sorted(cfg)} "
+            f"(build takes {sorted(bkeys)}, search takes {sorted(skeys)})"
+        )
+    inst = cls.build(X, device=device, **bkw)
+    inst.search_defaults = skw
+    return inst
+
+
+def attach_quant_store(inst, store) -> None:
+    """Attach a built ``core/quant.QuantStore`` — through the engine's
+    ``attach_quant`` hook when it has one, else as a plain ``quant``
+    attribute."""
+    hook = getattr(inst, "attach_quant", None)
+    if hook is not None:
+        hook(store)
+    else:
+        inst.quant = store
+
+
+def pytree_nbytes(tree) -> int:
+    """Bytes of every tensor in a nested structure (dicts, lists, tuples,
+    ``nn.Module`` parameters and buffers); None counts 0."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(pytree_nbytes(t) for t in
+                   list(tree.parameters()) + list(tree.buffers()))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, Mapping):
+        return sum(pytree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(pytree_nbytes(v) for v in tree)
+    return 0
+
+
+def side_store_bytes(inst) -> int:
+    """Bytes of the per-instance side stores (``quant`` codes) — every
+    engine's ``memory_bytes`` adds this."""
+    store = getattr(inst, "quant", None)
+    return 0 if store is None else int(store.memory_bytes())
 
 
 def resolve(value, defaults: Optional[Mapping[str, Any]], key: str, fallback=None):

@@ -8,6 +8,12 @@ that have a kernel (the CUDA kernel on the card, its blocked plain version
 on the CPU) and through the same blocked merge over the metric's matrix
 form for jaccard and correlation.
 
+``topk_scan_quant`` is the int8 twin over a ``core/quant.QuantStore``
+view: the euclidean family runs the int8 kernel's function (JAX's
+``impl="pallas"``: the query is quantised too), any other metric the
+blocked merge over one dequantised block at a time.  ``quant_candidates``
+scores gathered candidate lists on dequantised codes.
+
 ``torch.topk`` does not reproduce ``lax.top_k``'s lowest-index tie order,
 so every selection here is a STABLE sort of [running best, new], which
 keeps the earlier entry on ties.
@@ -19,13 +25,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core import metrics as metrics_lib
+from repro_torch.core import quant as quant_lib
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, blocked_topk
 
 INF = float("inf")
 
-__all__ = ["DEFAULT_BLOCK", "pow2ceil", "topk_scan", "merge_topk",
-           "topk_candidates"]
+__all__ = ["DEFAULT_BLOCK", "pow2ceil", "topk_scan", "topk_scan_quant",
+           "merge_topk", "topk_candidates", "quant_candidates"]
 
 
 def pow2ceil(x: int) -> int:
@@ -57,6 +64,36 @@ def topk_scan(
     return blocked_topk(
         Q.float(), Y.float(), k=k, dist_fn=metrics_lib.matrix_fn(metric),
         exclude_self=exclude_self, valid=valid, block=block,
+    )
+
+
+def topk_scan_quant(
+    Q: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    k: int,
+    metric: str = "euclidean",
+    valid: Optional[torch.Tensor] = None,
+    sqnorms: Optional[torch.Tensor] = None,
+    block: int = DEFAULT_BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_scan`` over int8 corpus codes — the quantized first pass.
+
+    Q (m, d) f32, codes (n, d) int8, scales (d,) f32 -> the usual (dists,
+    idxs) contract, with code-space distances.  Sqeuclidean and euclidean
+    go to ``kernels/topk.topk_quant`` (``sqnorms`` is the store's
+    precomputed norm row); other metrics dequantise ONE block at a time
+    against the metric's matrix form, so the (n, d) f32 corpus never
+    exists."""
+    if metric in topk_ops.QUANT_METRICS:
+        return topk_ops.topk_quant(Q, codes, scales, k=k, metric=metric,
+                                   valid=valid, sqnorms=sqnorms, block=block)
+    fn = metrics_lib.matrix_fn(metric)
+    Qf = Q.float()
+    return blocked_topk(
+        Qf, codes, k=k, dist_fn=lambda q, c: fn(q, quant_lib.decode(c, scales)),
+        valid=valid, block=block,
     )
 
 
@@ -95,10 +132,35 @@ def topk_candidates(
     form of the JAX package's per-query ``topk_candidates`` under ``vmap``:
     rows are gathered, scored with the metric's matrix form, and selected
     with a stable sort, so ties go to the earlier candidate position."""
+    return _select_candidates(Q, cand, X[cand.long().clamp_min(0)].float(),
+                              k=k, metric=metric)
+
+
+def quant_candidates(
+    Q: torch.Tensor,
+    cand: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    k: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_candidates`` on int8 codes: approximate top-k over gathered
+    candidate lists scored against the dequantised codes (the batched form
+    of the JAX package's per-query ``quant_candidates`` under ``vmap``).
+    No kernel runs here, in either package."""
+    G = quant_lib.decode(codes[cand.long().clamp_min(0)], scales)  # (B, C, d)
+    return _select_candidates(Q, cand, G, k=k, metric=metric)
+
+
+def _select_candidates(Q: torch.Tensor, cand: torch.Tensor, G: torch.Tensor, *,
+                       k: int, metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score the gathered rows G (B, C, d) of candidate lists cand (B, C)
+    and keep the k best of each list (stable: ties to the earlier
+    position); -1 candidates score +inf."""
     k = int(k)
     cand = cand.long()
     B, C = cand.shape
-    G = X[cand.clamp_min(0)].float()  # (B, C, d)
     D = metrics_lib.matrix_fn(metric)(Q.float()[:, None, :], G)[:, 0, :]
     D = torch.where(cand >= 0, D, INF)
     if C < k:

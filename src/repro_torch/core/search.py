@@ -12,9 +12,11 @@ rerank), the beam over the flattened tree (batches of
 in the ORIGINAL metric (two-stage search, App. F.5) with a gather, the
 metric's matrix form and a stable sort.
 
-On a CUDA device the three kernels are the default; the CPU runs their
-plain versions.  Filters, the int8 prefilter and telemetry are not ported
-yet.
+On a CUDA device the kernels are the default; the CPU runs their plain
+versions.  With a ``quant`` store attached (``index.attach_quant_store``)
+the beam's bucket scans read int8 codes of the embedding rows and the
+rerank prefilters its candidates on the store's codes.  Filters and
+telemetry are not ported yet.
 """
 from __future__ import annotations
 
@@ -106,8 +108,12 @@ class InfinityIndex:
     tree: vptree_lib.VPTree
     train_history: dict
     search_defaults: dict = dataclasses.field(default_factory=dict)
-    #: lazily-built beam state: {"flat": FlatVPTree, "Zf": Z[perm]}
+    #: lazily-built beam state: {"flat": FlatVPTree, "Zf": Z[perm],
+    #: "zcodes": (int8 codes of Zf, scales) once a quant store is attached}
     _flat: Optional[dict] = dataclasses.field(default=None, repr=False, compare=False)
+    #: int8 codes of X (``index.attach_quant_store``), or None
+    quant: Optional[quant_lib.QuantStore] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -241,11 +247,13 @@ class InfinityIndex:
                 # the beam reaches whole buckets: widen the shortlist to at
                 # least the 8x-k rule
                 K = max(K, quant_lib.shortlist_width(k, self.X.shape[0], mult=8))
-            flat, Zf = self._flat_view()
+            flat, Zf, zc = self._flat_view()
+            codes, scales = zc if zc is not None else (None, None)
             idx, _, comps = vptree_lib.search_beam(
                 flat, Zq, q=self.config.q, k=K, X=Zf, metric="euclidean",
                 max_comparisons=None if max_comparisons is None else int(max_comparisons),
                 beam_width=beam_width, bucket_cap=bucket_cap,
+                codes=codes, scales=scales,
             )
         else:
             idx, _, comps = vptree_lib.search_best_first(
@@ -270,22 +278,58 @@ class InfinityIndex:
         return mode == "beam" or (mode == "auto" and batch >= AUTO_BEAM_MIN_BATCH)
 
     def _flat_view(self):
-        """The lazily-built beam state: the flattened tree and the
-        layout-ordered embedding rows.  ``refresh`` returns a new instance,
-        which resets it."""
+        """The lazily-built beam state: the flattened tree, the
+        layout-ordered embedding rows and, with a quant store attached,
+        their int8 codes.  ``refresh`` returns a new instance, which resets
+        it."""
         if self._flat is None:
             flat = vptree_lib.flatten_vptree(
                 self.tree, leaf_size=self.config.leaf_size,
                 Z=self.Z.cpu().numpy(), metric="euclidean",
             )
-            self._flat = {"flat": flat, "Zf": self.Z[flat.perm.long()]}
-        return self._flat["flat"], self._flat["Zf"]
+            self._flat = {"flat": flat, "Zf": self.Z[flat.perm.long()],
+                          "zcodes": None}
+        cache = self._flat
+        if self.quant is not None and cache["zcodes"] is None:
+            # bucket scans read EMBEDDING rows, so they need codes of Zf
+            # under their own scales; the store quantizes the ORIGINAL rows
+            # for the rerank
+            scales = quant_lib.absmax_scales(cache["Zf"], axis=0)
+            cache["zcodes"] = (quant_lib.encode(cache["Zf"], scales), scales)
+        zc = cache["zcodes"] if self.quant is not None else None
+        return cache["flat"], cache["Zf"], zc
 
     def _rerank(self, Q: torch.Tensor, idx: torch.Tensor, k: int):
         """Specific search (F.5): original-metric distances to the
-        candidates, the best k kept."""
-        return scan_lib.topk_candidates(Q, idx, self.X, k=int(k),
+        candidates, the best k kept.  With a quant store attached, a
+        candidate list wider than ``quant.shortlist_width(k, n)`` is first
+        cut to that width on int8 codes, so only the sub-shortlist reads
+        f32 rows."""
+        k = int(k)
+        if self.quant is not None:
+            w = quant_lib.shortlist_width(k, self.X.shape[0])
+            if idx.shape[1] > w:
+                codes, scales, _ = self.quant.device_view()
+                idx, _ = scan_lib.quant_candidates(
+                    Q, idx, codes, scales, k=w, metric=self.config.metric)
+        return scan_lib.topk_candidates(Q, idx, self.X, k=k,
                                         metric=self.config.metric)
+
+    def memory_bytes(self) -> int:
+        """Bytes of every resident tensor: X, Z, Phi, the tree, the quant
+        store and, once built, the beam state."""
+        tree = self.tree
+        total = index_lib.pytree_nbytes(
+            (self.X, self.Z, self.phi, (tree.vantage, tree.mu, tree.left, tree.right))
+        ) + index_lib.side_store_bytes(self)
+        if self._flat is not None:
+            flat = self._flat["flat"]
+            total += index_lib.pytree_nbytes(
+                (flat.mu, flat.child_in, flat.child_out, flat.rad_in,
+                 flat.rad_out, flat.centroids, flat.bucket_rows, flat.perm,
+                 self._flat["Zf"], self._flat["zcodes"])
+            )
+        return total
 
     # --------------------------------------------------------------- refresh
     def refresh(self, X, *, Z: Optional[torch.Tensor] = None) -> "InfinityIndex":

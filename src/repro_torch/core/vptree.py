@@ -530,6 +530,8 @@ def search_beam(
     beam_width: Optional[int] = None,
     bucket_cap: Optional[int] = None,
     valid: Optional[torch.Tensor] = None,
+    codes: Optional[torch.Tensor] = None,
+    scales: Optional[torch.Tensor] = None,
     with_stages: bool = False,
 ):
     """Level-synchronous beam search over a flattened VP tree for a whole
@@ -537,11 +539,17 @@ def search_beam(
 
     ``X`` is the LAYOUT-ORDERED corpus (``Z[flat.perm]``); with ``X=None``
     each query is a precomputed (n,) row indexed by ORIGINAL id.
+    ``codes``/``scales`` (int8 codes of the layout-ordered corpus and their
+    per-dimension scales) switch the bucket scans to dequantised code rows;
+    the traversal stays f32, because navigation errors compound down the
+    tree.
     ``max_comparisons`` is a plan (``beam_plan``; explicit knobs win).
     Returns (idx (B, k) int32 original ids, dist (B, k), comparisons (B,)
     int32) and, with ``with_stages``, a dict of (B,) int32 counters
     ``{"traversal", "centroid_rank", "bucket_scan"}`` summing to
     ``comparisons``."""
+    if codes is not None and X is None:
+        raise ValueError("quantized bucket scan requires vector mode (X)")
     W0, B0 = beam_plan(
         max_comparisons, depth=flat.depth, leaf_size=flat.leaf_size,
         num_nodes=flat.num_nodes, num_buckets=flat.num_buckets, k=k,
@@ -566,6 +574,11 @@ def search_beam(
         if X is None:
             return queries.gather(1, perm[rows])
         return pair(queries[:, None, :], X[rows])
+
+    def bucket_dists(rows: torch.Tensor) -> torch.Tensor:
+        if codes is None:
+            return point_dists(rows)
+        return pair(queries[:, None, :], codes[rows].float() * scales)
 
     def merge(best_d, best_i, ds, ids):
         cd = torch.cat([best_d, ds], dim=1)
@@ -638,7 +651,7 @@ def search_beam(
     rows = rows.reshape(B, -1)
     rvalid = rows >= 0
     rsafe = rows.clamp_min(0)
-    d = torch.where(rvalid, point_dists(rsafe), INF)
+    d = torch.where(rvalid, bucket_dists(rsafe), INF)
     oid = perm[rsafe]
     c_buck = rvalid.sum(1)
     acc = rvalid if valid is None else rvalid & valid[oid]

@@ -1,25 +1,33 @@
-// Dense distance matrix, matmul family (sqeuclidean, euclidean, cosine, dot).
+// Dense distance matrix: the matmul family (sqeuclidean, euclidean,
+// cosine, dot) and the cube family (manhattan, chebyshev).
 //
-// Replaces the TPU kernel src/repro/kernels/pdist/pdist.py:_matmul_kernel
-// (entry pdist_pallas).  out[i, j] = epilogue(X[i] . Y[j], |X[i]|^2,
-// |Y[j]|^2) for X (m, d), Y (n, d), row-major f32.
+// Replaces the TPU kernels src/repro/kernels/pdist/pdist.py:_matmul_kernel
+// and :_cube_kernel (entry pdist_pallas).  For X (m, d), Y (n, d),
+// row-major f32: out[i, j] = epilogue(X[i] . Y[j], |X[i]|^2, |Y[j]|^2) in
+// the matmul family, sum_l |X[i, l] - Y[j, l]| (manhattan) or
+// max_l |X[i, l] - Y[j, l]| (chebyshev) in the cube family.
 //
-// Bound on an H100: 2*m*n*d flops of f32 FMA against (m + n)*d + m*n words
-// of traffic.  At the main-path shape (D on the projection subset, 2048 x
-// 2048 x 784) that is 6.6 GFLOP (~98 us at 67 TFLOP/s) against ~30 MB
-// (~9 us at 3.35 TB/s): compute-bound on the CUDA cores.  The reference is
-// full f32, so the tensor cores (TF32 at best) are not used.
+// Bound on an H100: the matmul family does 2*m*n*d flops of f32 FMA
+// against (m + n)*d + m*n words of traffic.  At the main-path shape (D on
+// the projection subset, 2048 x 2048 x 784) that is 6.6 GFLOP (~98 us at
+// 67 TFLOP/s) against ~30 MB (~9 us at 3.35 TB/s): compute-bound on the
+// CUDA cores.  The reference is full f32, so the tensor cores (TF32 at
+// best) are not used.  The cube family does two f32 instructions per
+// (i, j, l) (subtract, then add or max with the absolute value as an
+// operand modifier): ~0.196 ms at 33.5 T instructions/s for 2048^2 x 784.
 //
 // Design: one block of 256 threads per 64 x 64 output tile; tiles of X and
 // Y over d (16 wide) pass through shared memory, stored k-major and padded
 // so each thread reads its 4 rows and 4 columns as float4; every thread
-// keeps a 4 x 4 register tile of the cross term.  Two warps accumulate the
-// 64 squared norms of the X tile's rows and two those of the Y tile's rows
-// from the same shared tiles, so nothing is read twice from memory.  The
-// epilogue (clamp >= 0, sqrt, cosine normalisation, negation) is applied
-// to the registers and the tile is written once.  A simple, correct first
-// version: register tiles larger than 4 x 4 and a cp.async pipeline would
-// raise the FMA share; that is later work.
+// keeps a 4 x 4 register tile.  The family is a template parameter (the
+// step is common.cuh:accumulate): the matmul instance also has two warps
+// accumulate the 64 squared norms of the X tile's rows and two those of
+// the Y tile's rows from the same shared tiles, and applies the epilogue
+// (clamp >= 0, sqrt, cosine normalisation, negation) to the registers; the
+// cube instances start from 0 and write the accumulator (zero-padded d
+// columns add |0 - 0| = 0).  The tile is written once.  A simple, correct
+// first version: register tiles larger than 4 x 4 and a cp.async pipeline
+// would raise the arithmetic share; that is later work.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -32,6 +40,7 @@ constexpr int TK = 16;
 constexpr int THREADS = 256;
 constexpr int PAD = 4;  // keeps float4 alignment, spreads the k-major stores
 
+template <int FAM>
 __global__ void __launch_bounds__(THREADS)
     pdist_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                  float* __restrict__ out, int m, int n, int d, int metric) {
@@ -64,13 +73,15 @@ __global__ void __launch_bounds__(THREADS)
       Ys[c][r] = (gy < n && gk < d) ? Y[(size_t)gy * d + gk] : 0.0f;
     }
     __syncthreads();
-    if (tid < TM) {
+    if constexpr (FAM == rt::MATMUL_FAMILY) {
+      if (tid < TM) {
 #pragma unroll
-      for (int c = 0; c < TK; ++c) norm = fmaf(Xs[c][tid], Xs[c][tid], norm);
-    } else if (tid < TM + TN) {
-      const int r = tid - TM;
+        for (int c = 0; c < TK; ++c) norm = fmaf(Xs[c][tid], Xs[c][tid], norm);
+      } else if (tid < TM + TN) {
+        const int r = tid - TM;
 #pragma unroll
-      for (int c = 0; c < TK; ++c) norm = fmaf(Ys[c][r], Ys[c][r], norm);
+        for (int c = 0; c < TK; ++c) norm = fmaf(Ys[c][r], Ys[c][r], norm);
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < TK; ++kk) {
@@ -81,16 +92,19 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = rt::accumulate<FAM>(acc[i][j], av[i], bv[j]);
     }
     __syncthreads();
   }
-  if (tid < TM) {
-    sx[tid] = norm;
-  } else if (tid < TM + TN) {
-    sy[tid - TM] = norm;
+  if constexpr (FAM == rt::MATMUL_FAMILY) {
+    if (tid < TM) {
+      sx[tid] = norm;
+    } else if (tid < TM + TN) {
+      sy[tid - TM] = norm;
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -100,8 +114,11 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 4; ++j) {
       const int gc = col0 + tx * 4 + j;
       if (gc < n) {
-        out[(size_t)gr * n + gc] =
-            rt::epilogue(metric, acc[i][j], sx[ty * 4 + i], sy[tx * 4 + j]);
+        float v = acc[i][j];
+        if constexpr (FAM == rt::MATMUL_FAMILY) {
+          v = rt::epilogue(metric, v, sx[ty * 4 + i], sy[tx * 4 + j]);
+        }
+        out[(size_t)gr * n + gc] = v;
       }
     }
   }
@@ -112,7 +129,25 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int pdist_f32(const float* X, const float* Y, float* out, int m,
                          int n, int d, int metric, void* stream) {
   const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM);
-  pdist_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, Y, out, m, n, d, metric);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (metric) {
+    case rt::SQEUCLIDEAN:
+    case rt::EUCLIDEAN:
+    case rt::COSINE:
+    case rt::DOT:
+      pdist_kernel<rt::MATMUL_FAMILY><<<grid, THREADS, 0, s>>>(X, Y, out, m, n,
+                                                              d, metric);
+      break;
+    case rt::MANHATTAN:
+      pdist_kernel<rt::MANHATTAN_FAMILY><<<grid, THREADS, 0, s>>>(X, Y, out, m,
+                                                                 n, d, metric);
+      break;
+    case rt::CHEBYSHEV:
+      pdist_kernel<rt::CHEBYSHEV_FAMILY><<<grid, THREADS, 0, s>>>(X, Y, out, m,
+                                                                 n, d, metric);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,61 +1,52 @@
-// Fused distance + streaming top-k, f32 matmul family (sqeuclidean,
-// euclidean, cosine, dot).
+// Fused distance + streaming top-k over f32 rows: the matmul family
+// (sqeuclidean, euclidean, cosine, dot) and the cube family (manhattan,
+// chebyshev).
 //
-// Replaces the TPU kernel src/repro/kernels/topk/topk.py:_matmul_kernel
-// (entry topk_pallas; helpers _mask_tile, _select_and_store, _merge_topk).
-// For every row of X (m, d) it returns the k nearest rows of Y (n, d):
-// distances (m, k) ascending and their column ids (m, k) int32, without
-// writing the (m, n) distance matrix.  Masks: columns >= n, columns whose
-// `valid` byte is 0, and the global diagonal when exclude_self is set.
-// Ties go to the lowest column; slots past the valid candidates hold
-// (+inf, -1).
+// Replaces the TPU kernels src/repro/kernels/topk/topk.py:_matmul_kernel
+// and :_cube_kernel (entry topk_pallas; helpers _mask_tile,
+// _select_and_store, _merge_topk).  For every row of X (m, d) it returns
+// the k nearest rows of Y (n, d): distances (m, k) ascending and their
+// column ids (m, k) int32, without writing the (m, n) distance matrix.
+// Masks: columns >= n, columns whose `valid` byte is 0, and the global
+// diagonal when exclude_self is set.  Ties go to the lowest column; slots
+// past the valid candidates hold (+inf, -1).
 //
-// Bound on an H100: the same 2*m*n*d f32 FMA flops as pdist against
-// (m + n)*d + 2*m*k words: compute-bound on the CUDA cores (kNN graph
-// 2048 x 2048 x 784: ~98 us; ground truth 10000 x 60000 x 784: 0.94 TFLOP,
-// ~14 ms at 67 TFLOP/s).
+// Bound on an H100: the matmul family does 2*m*n*d f32 flops (one FMA per
+// (i, j, l)) against (m + n)*d + 2*m*k words: compute-bound on the CUDA
+// cores (kNN graph 2048 x 2048 x 784: ~98 us; ground truth 10000 x 60000 x
+// 784: 0.94 TFLOP, ~14 ms at 67 TFLOP/s).  The cube family does two f32
+// instructions per (i, j, l) (a subtraction, then an add or max that takes
+// the absolute value as an operand modifier) and has no tensor-core form:
+// ~0.196 ms for the kNN graph, ~28 ms for the ground truth at 33.5 T
+// instructions/s.
 //
 // Design: one block of 256 threads owns a strip of 32 query rows and
-// streams Y in tiles of 64 columns.  Each tile's distances are computed
-// with pdist's arithmetic (X and Y slices over d through shared memory, a
-// 2 x 4 register tile per thread, squared norms summed by three warps from
-// the same shared tiles) and staged in shared memory with the masks
-// applied.  The running top-k of each row lives in shared memory (sorted,
-// 32 x k entries).  One warp merges one row at a time: a ballot finds the
-// tile's candidates strictly below the row's current k-th distance — for a
-// converged row usually none, so the tile costs two shared loads per lane —
-// and lane 0 inserts those in ascending column order, each only if still
-// strictly below the k-th.  Inserting after equal entries and visiting
-// columns in ascending order reproduces lax.top_k's lowest-index tie rule.
-// Known limit of this first version: at m = 2048 the 32-row strips give 64
-// blocks for 132 SMs, so the kNN-graph call leaves half the card idle.
+// streams Y in tiles of 64 columns.  X and Y slices over d pass through
+// shared memory, stored d-major, and every thread keeps a 2 x 4 register
+// tile.  The distance family is a template parameter: the matmul instance
+// accumulates the cross term and (three warps, from the same shared tiles)
+// the squared norms, then applies the epilogue; the cube instances
+// accumulate |x - y| by sum or max, starting from 0, and the accumulator
+// is the distance (zero-padded d columns add |0 - 0| = 0).  The finished
+// tile is staged in shared memory with the masks applied and merged into
+// the running top-k by the ballot insert that common.cuh describes.  Known
+// limit of this first version: at m = 2048 the 32-row strips give 64
+// blocks for 132 SMs, so the kNN-graph call leaves half the card idle, and
+// a 512-query brute batch (16 blocks) leaves most of it idle.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BM = 32;
-constexpr int BN = 64;
+constexpr int BM = rt::SEL_ROWS;
+constexpr int BN = rt::SEL_COLS;
 constexpr int BK = 16;
-constexpr int THREADS = 256;
+constexpr int THREADS = rt::SEL_THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 4;
-constexpr int MAX_K = 128;
 
-__device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
-                                              float v, int col) {
-  if (!(v < bd[k - 1])) return;
-  int p = k - 1;
-  while (p > 0 && bd[p - 1] > v) {
-    bd[p] = bd[p - 1];
-    bi[p] = bi[p - 1];
-    --p;
-  }
-  bd[p] = v;
-  bi[p] = col;
-}
-
+template <int FAM>
 __global__ void __launch_bounds__(THREADS)
     topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const unsigned char* __restrict__ valid,
@@ -71,9 +62,9 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ float sy[BN];
 
   const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * BM;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int row0 = blockIdx.x * BM;
   const int ty = tid / 16;  // rows ty*2, ty*2+1
   const int tx = tid % 16;  // cols tx*4 .. tx*4+3
 
@@ -106,13 +97,15 @@ __global__ void __launch_bounds__(THREADS)
         Ys[c][r] = (gr < n && gk < d) ? Y[(size_t)gr * d + gk] : 0.0f;
       }
       __syncthreads();
-      if (tid < BN) {
+      if constexpr (FAM == rt::MATMUL_FAMILY) {
+        if (tid < BN) {
 #pragma unroll
-        for (int c = 0; c < BK; ++c) norm = fmaf(Ys[c][tid], Ys[c][tid], norm);
-      } else if (tid < BN + BM) {
-        const int r = tid - BN;
+          for (int c = 0; c < BK; ++c) norm = fmaf(Ys[c][tid], Ys[c][tid], norm);
+        } else if (tid < BN + BM) {
+          const int r = tid - BN;
 #pragma unroll
-        for (int c = 0; c < BK; ++c) norm = fmaf(Xs[c][r], Xs[c][r], norm);
+          for (int c = 0; c < BK; ++c) norm = fmaf(Xs[c][r], Xs[c][r], norm);
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < BK; ++kk) {
@@ -123,16 +116,19 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = rt::accumulate<FAM>(acc[i][j], av[i], bv[j]);
       }
       __syncthreads();
     }
-    if (tid < BN) {
-      sy[tid] = norm;
-    } else if (tid < BN + BM) {
-      sx[tid - BN] = norm;
+    if constexpr (FAM == rt::MATMUL_FAMILY) {
+      if (tid < BN) {
+        sy[tid] = norm;
+      } else if (tid < BN + BM) {
+        sx[tid - BN] = norm;
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -142,7 +138,10 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < 4; ++j) {
         const int c = tx * 4 + j;
         const int gc = col0 + c;
-        float v = rt::epilogue(metric, acc[i][j], sx[r], sy[c]);
+        float v = acc[i][j];
+        if constexpr (FAM == rt::MATMUL_FAMILY) {
+          v = rt::epilogue(metric, v, sx[r], sy[c]);
+        }
         if (gc >= n || (valid != nullptr && valid[gc] == 0) ||
             (exclude_self && gr == gc)) {
           v = INFINITY;
@@ -151,7 +150,6 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
-
     for (int r = warp; r < BM; r += WARPS) {
       if (row0 + r >= m) continue;  // uniform across the warp
       float* bd = best_d + r * k;
@@ -162,11 +160,11 @@ __global__ void __launch_bounds__(THREADS)
       if (lane == 0) {
         for (unsigned bits = lo; bits; bits &= bits - 1) {
           const int b = __ffs(bits) - 1;
-          insert_sorted(bd, bi, k, Dt[r][b], col0 + b);
+          rt::insert_sorted(bd, bi, k, Dt[r][b], col0 + b);
         }
         for (unsigned bits = hi; bits; bits &= bits - 1) {
           const int b = __ffs(bits) - 1;
-          insert_sorted(bd, bi, k, Dt[r][32 + b], col0 + 32 + b);
+          rt::insert_sorted(bd, bi, k, Dt[r][32 + b], col0 + 32 + b);
         }
       }
       __syncwarp();
@@ -183,20 +181,41 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int FAM>
+int launch(const float* X, const float* Y, const unsigned char* valid,
+           float* out_d, int* out_i, int m, int n, int d, int k, int metric,
+           int exclude_self, cudaStream_t stream) {
+  size_t smem = 0;
+  const cudaError_t err = rt::reserve_best_smem(topk_kernel<FAM>, k, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((m + BM - 1) / BM);
+  topk_kernel<FAM><<<grid, THREADS, smem, stream>>>(
+      X, Y, valid, out_d, out_i, m, n, d, k, metric, exclude_self);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int topk_f32(const float* X, const float* Y,
                         const unsigned char* valid, float* out_d, int* out_i,
                         int m, int n, int d, int k, int metric,
                         int exclude_self, void* stream) {
-  if (k < 1 || k > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(BM) * k * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM);
-  topk_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, Y, valid, out_d, out_i, m, n, d, k, metric, exclude_self);
-  return static_cast<int>(cudaGetLastError());
+  if (k < 1 || k > rt::SEL_MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (metric) {
+    case rt::SQEUCLIDEAN:
+    case rt::EUCLIDEAN:
+    case rt::COSINE:
+    case rt::DOT:
+      return launch<rt::MATMUL_FAMILY>(X, Y, valid, out_d, out_i, m, n, d, k,
+                                       metric, exclude_self, s);
+    case rt::MANHATTAN:
+      return launch<rt::MANHATTAN_FAMILY>(X, Y, valid, out_d, out_i, m, n, d,
+                                          k, metric, exclude_self, s);
+    case rt::CHEBYSHEV:
+      return launch<rt::CHEBYSHEV_FAMILY>(X, Y, valid, out_d, out_i, m, n, d,
+                                          k, metric, exclude_self, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

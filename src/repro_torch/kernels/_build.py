@@ -28,10 +28,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: kernel name -> launches since the last ``reset_launches``; the qpath
-#: kernel counts each semiring mode apart (one template instance each)
-_LAUNCHES: dict[str, int] = {"pdist": 0, "topk": 0, "qpath/minplus": 0,
-                             "qpath/minmax": 0, "qpath/logminplus": 0}
+#: kernel regime -> launches since the last ``reset_launches``: each
+#: distance family and each semiring mode counts apart (one template
+#: instance, or one kernel, each)
+_LAUNCHES: dict[str, int] = {
+    "topk/f32": 0, "topk/cube": 0, "topk/int8": 0,
+    "pdist/matmul": 0, "pdist/cube": 0,
+    "qpath/minplus": 0, "qpath/minmax": 0, "qpath/logminplus": 0,
+}
 #: the loaded library and what building it took
 _STATE: dict = {"lib": None, "info": None}
 

@@ -1,5 +1,6 @@
 """ctypes binding of ``csrc/pdist.cu`` — the dense distance matrix on the
-card (replaces ``repro/kernels/pdist/pdist.py:_matmul_kernel``)."""
+card (replaces ``repro/kernels/pdist/pdist.py:_matmul_kernel`` and
+``:_cube_kernel``)."""
 from __future__ import annotations
 
 import ctypes
@@ -11,18 +12,20 @@ from repro_torch.kernels import _build
 MATMUL_METRICS = ("sqeuclidean", "euclidean", "cosine", "dot")
 CUBE_METRICS = ("manhattan", "chebyshev")
 #: must match ``csrc/common.cuh:rt::Metric``
-METRIC_CODES = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 3}
+METRIC_CODES = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 3,
+                "manhattan": 4, "chebyshev": 5}
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def regime(metric: str) -> str:
+    """The distance family a metric's kernel instance belongs to (the
+    suffix of its launch counter)."""
+    return "cube" if metric in CUBE_METRICS else "matmul"
+
+
 def pdist_cuda(X: torch.Tensor, Y: torch.Tensor, *, metric: str) -> torch.Tensor:
     """(m, d) x (n, d) CUDA f32 -> (m, n) distances, by the CUDA kernel."""
-    if metric in CUBE_METRICS:
-        raise NotImplementedError(
-            f"pdist metric {metric!r}: the manhattan/chebyshev kernel "
-            "(repro/kernels/pdist/pdist.py:_cube_kernel) is not ported yet"
-        )
     if metric not in METRIC_CODES:
         raise ValueError(f"pdist kernel does not support metric {metric!r}")
     if not (X.is_cuda and Y.is_cuda):
@@ -40,5 +43,5 @@ def pdist_cuda(X: torch.Tensor, Y: torch.Tensor, *, metric: str) -> torch.Tensor
     err = fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), m, n, d,
              METRIC_CODES[metric], _build.stream_handle(X.device))
     _build.check(err, "pdist_f32")
-    _build.note_launch("pdist")
+    _build.note_launch(f"pdist/{regime(metric)}")
     return out

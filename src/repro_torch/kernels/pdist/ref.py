@@ -6,6 +6,14 @@ from __future__ import annotations
 import torch
 
 EPS = 1e-12
+#: bound on the (rows, n, d) |x - y| intermediate of the cube metrics: rows
+#: of X are taken in blocks that keep it under this many bytes
+CUBE_BLOCK_BYTES = 1 << 28
+
+
+def cube_rows(n: int, d: int) -> int:
+    """Rows per block of a cube-metric matrix over n columns of width d."""
+    return max(1, CUBE_BLOCK_BYTES // (4 * max(n, 1) * max(d, 1)))
 
 
 def pdist_ref(X: torch.Tensor, Y: torch.Tensor, *, metric: str) -> torch.Tensor:
@@ -25,8 +33,13 @@ def pdist_ref(X: torch.Tensor, Y: torch.Tensor, *, metric: str) -> torch.Tensor:
         return 1.0 - (X @ Y.T) / (nx[:, None] * ny[None, :])
     if metric == "dot":
         return -(X @ Y.T)
-    if metric == "manhattan":
-        return (X[:, None, :] - Y[None, :, :]).abs().sum(-1)
-    if metric == "chebyshev":
-        return (X[:, None, :] - Y[None, :, :]).abs().amax(-1)
+    if metric in ("manhattan", "chebyshev"):
+        rows = cube_rows(Y.shape[0], Y.shape[1])
+        return torch.cat([_cube(X[i:i + rows], Y, metric)
+                          for i in range(0, max(X.shape[0], 1), rows)])
     raise ValueError(metric)
+
+
+def _cube(X: torch.Tensor, Y: torch.Tensor, metric: str) -> torch.Tensor:
+    diff = (X[:, None, :] - Y[None, :, :]).abs_()
+    return diff.sum(-1) if metric == "manhattan" else diff.amax(-1)

@@ -1,5 +1,9 @@
-"""Public fused top-k entry: the CUDA kernel for CUDA tensors, the plain
-blocked merge for CPU tensors (never a fallback for a CUDA tensor)."""
+"""Public fused top-k entries: the CUDA kernels for CUDA tensors, the plain
+blocked merges for CPU tensors (never a fallback for a CUDA tensor).
+
+``topk`` serves the f32 regimes (matmul and cube families); ``topk_quant``
+the int8 corpus-code regime fed by ``core/quant.QuantStore.device_view()``.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,12 +11,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.pdist.pdist import CUBE_METRICS, MATMUL_METRICS
-from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, topk_ref
-from repro_torch.kernels.topk.topk import MAX_K, topk_cuda
+from repro_torch.kernels.topk.ref import (
+    DEFAULT_BLOCK,
+    QUANT_METRICS,
+    topk_quant_ref,
+    topk_ref,
+)
+from repro_torch.kernels.topk.topk import MAX_K, topk_cuda, topk_quant_cuda
 
 SUPPORTED = MATMUL_METRICS + CUBE_METRICS
 
-__all__ = ["topk", "SUPPORTED", "MATMUL_METRICS", "CUBE_METRICS", "MAX_K"]
+__all__ = ["topk", "topk_quant", "SUPPORTED", "MATMUL_METRICS", "CUBE_METRICS",
+           "QUANT_METRICS", "MAX_K"]
 
 
 def topk(
@@ -32,3 +42,27 @@ def topk(
                          valid=valid)
     return topk_ref(X, Y, k=k, metric=metric, exclude_self=exclude_self,
                     valid=valid, block=block)
+
+
+def topk_quant(
+    Q: torch.Tensor,
+    codes: torch.Tensor,
+    scales: torch.Tensor,
+    *,
+    k: int,
+    metric: str = "euclidean",
+    valid: Optional[torch.Tensor] = None,
+    sqnorms: Optional[torch.Tensor] = None,
+    block: int = DEFAULT_BLOCK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Int8 fused scan over corpus codes (the first pass of a quantized
+    engine).  ``sqnorms`` — per-row squared dequant norms — is recomputed
+    when the caller has no ``QuantStore.device_view()`` at hand."""
+    if sqnorms is None:
+        dec = codes.float() * scales[None, :]
+        sqnorms = (dec * dec).sum(1)
+    if Q.is_cuda:
+        return topk_quant_cuda(Q, codes, scales, sqnorms, k=k, metric=metric,
+                               valid=valid)
+    return topk_quant_ref(Q, codes, scales, sqnorms, k=k, metric=metric,
+                          valid=valid, block=block)

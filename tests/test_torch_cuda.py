@@ -3,9 +3,11 @@
 Every test here needs a CUDA device: the ``cuda`` fixture decides, and
 skips without one (never at import, so every xdist worker collects the same
 tests).  Run on a card with ``pytest -m gpu tests/test_torch_cuda.py``.
-Tolerances: matmul-family distances rtol 1e-5 / atol 5e-4 (the JAX kernel
-tests' atol); ids identical except on near ties; minmax and minplus
-bit-identical; logminplus atol 1e-5.
+Tolerances: matmul-family and manhattan distances rtol 1e-5 / atol 5e-4
+(the JAX kernel tests' atol; manhattan sums d terms in another order);
+chebyshev bit-identical (a max of exact differences); int8 distances
+rtol / atol 1e-4 (``tests/test_quant.py:108-110``); ids identical except on
+near ties; minmax and minplus bit-identical; logminplus atol 1e-5.
 """
 import math
 
@@ -16,19 +18,21 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import index as index_lib  # noqa: E402
 from repro_torch.core import qmetric  # noqa: E402
+from repro_torch.core import quant as quant_lib  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.pdist.pdist import pdist_cuda  # noqa: E402
 from repro_torch.kernels.pdist.ref import pdist_ref  # noqa: E402
 from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.qpath.ref import qpath_matmul_ref  # noqa: E402
-from repro_torch.kernels.topk.ref import topk_ref  # noqa: E402
-from repro_torch.kernels.topk.topk import topk_cuda  # noqa: E402
+from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref  # noqa: E402
+from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda  # noqa: E402
 from torch_parity import assert_same_ids  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
 MATMUL = ["sqeuclidean", "euclidean", "cosine", "dot"]
+CUBE = ["manhattan", "chebyshev"]
 QPATH_SHAPES = [(32, 48, 16), (128, 128, 128), (130, 70, 257), (8, 300, 9)]
 MODES = ["minplus", "minmax", "logminplus"]
 
@@ -49,7 +53,7 @@ def _normal(shape, seed, dev):
 
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
-    for name in ("pdist_kernel", "topk_kernel", "qpath_kernel"):
+    for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel"):
         assert name in info["ptxas"]
 
 
@@ -59,19 +63,30 @@ def test_build_reports_every_kernel(cuda):
 def test_pdist_kernel_matches_plain(cuda, shape, metric):
     m, n, d = shape
     X, Y = _normal((m, d), 1, cuda), _normal((n, d), 2, cuda)
-    before = _build.launches()["pdist"]
+    before = _build.launches()["pdist/matmul"]
     out = pdist_cuda(X, Y, metric=metric)
     torch.cuda.synchronize()
-    assert _build.launches()["pdist"] == before + 1
+    assert _build.launches()["pdist/matmul"] == before + 1
     ref = pdist_ref(X, Y, metric=metric)
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=5e-4)
 
 
-def test_pdist_cube_metrics_not_ported(cuda):
-    X = _normal((4, 3), 0, cuda)
-    with pytest.raises(NotImplementedError, match="_cube_kernel"):
-        pdist_cuda(X, X, metric="manhattan")
+@pytest.mark.parametrize("shape", [(40, 56, 20), (33, 257, 100), (2048, 2048, 784)])
+@pytest.mark.parametrize("metric", CUBE)
+def test_pdist_cube_kernel_matches_plain(cuda, shape, metric):
+    m, n, d = shape
+    X, Y = _normal((m, d), 1, cuda), _normal((n, d), 2, cuda)
+    before = _build.launches()["pdist/cube"]
+    out = pdist_cuda(X, Y, metric=metric)
+    torch.cuda.synchronize()
+    assert _build.launches()["pdist/cube"] == before + 1
+    ref = pdist_ref(X, Y, metric=metric)
+    if metric == "chebyshev":
+        assert torch.equal(out, ref)
+    else:
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=1e-5, atol=5e-4)
 
 
 @pytest.mark.parametrize("metric", MATMUL)
@@ -124,12 +139,73 @@ def test_topk_kernel_exclude_self_and_valid(cuda):
     assert (i[:, -1] == -1).all() and torch.isinf(d[:, -1]).all()
 
 
-def test_topk_kernel_rejects_large_k_and_cube(cuda):
-    X = _normal((4, 3), 0, cuda)
-    with pytest.raises(ValueError, match="k <= 128"):
-        topk_cuda(X, X, k=129)
-    with pytest.raises(NotImplementedError, match="_cube_kernel"):
-        topk_cuda(X, X, k=2, metric="chebyshev")
+def test_topk_kernel_wide_k_and_its_limit(cuda):
+    """k up to 512 (the first pass of a quantized engine takes up to 256);
+    beyond that the wrapper refuses."""
+    X, Y = _normal((40, 16), 8, cuda), _normal((3000, 16), 9, cuda)
+    for k in (200, 512):
+        od, oi = topk_cuda(X, Y, k=k, metric="euclidean")
+        rd, ri = topk_ref(X, Y, k=k, metric="euclidean")
+        assert_same_ids(oi, od, ri, rd)
+    with pytest.raises(ValueError, match="k <= 512"):
+        topk_cuda(X, Y, k=513)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1), (33, 257, 20, 5), (130, 129, 7, 17),
+                                   (70, 500, 16, 128), (2048, 2048, 784, 16)])
+@pytest.mark.parametrize("metric", CUBE)
+def test_topk_cube_kernel_matches_plain(cuda, shape, metric):
+    m, n, d, k = shape
+    X = _normal((m, d), 10, cuda)
+    Y = X if m == n else _normal((n, d), 11, cuda)
+    excl = m == n
+    valid = torch.as_tensor(np.arange(n) % 5 != 2, device=cuda) if n > 1 else None
+    before = _build.launches()["topk/cube"]
+    od, oi = topk_cuda(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/cube"] == before + 1
+    rd, ri = topk_ref(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    if metric == "chebyshev":
+        # exact distances, so exact ties break by the lowest column in both
+        assert torch.equal(od, rd) and torch.equal(oi, ri)
+    else:
+        assert_same_ids(oi, od, ri, rd)
+
+
+def test_topk_cube_kernel_ties_pick_lowest_index(cuda):
+    base = np.random.default_rng(12).normal(size=(20, 8)).astype(np.float32)
+    Y = torch.as_tensor(np.concatenate([base] * 3), device=cuda)
+    X = torch.as_tensor(base[:7], device=cuda)
+    for metric in CUBE:
+        d, i = topk_cuda(X, Y, k=9, metric=metric)
+        rd, ri = topk_ref(X, Y, k=9, metric=metric)
+        assert (i[:, :3].cpu().numpy() == np.arange(7)[:, None] + np.array([0, 20, 40])).all()
+        assert torch.equal(i[:, :3].cpu(), ri[:, :3].cpu())
+
+
+def _store(n, d, seed, dev):
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=dev)
+    Q = torch.as_tensor(rng.normal(size=(37, d)).astype(np.float32), device=dev)
+    return quant_lib.QuantStore.build(X), Q
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (257, 20, 5), (300, 21, 64), (4096, 128, 256),
+                                   (60000, 784, 64)])
+@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
+def test_topk_int8_kernel_matches_plain(cuda, shape, metric):
+    """d not a multiple of 4 takes the byte-assembled loads; the plain
+    version's float64 cross term is exact, like the kernel's int32 one."""
+    n, d, k = shape
+    store, Q = _store(n, d, n + d, cuda)
+    codes, scales, sqn = store.device_view()
+    valid = torch.as_tensor(np.arange(n) % 7 != 3, device=cuda) if n > 1 else None
+    before = _build.launches()["topk/int8"]
+    od, oi = topk_quant_cuda(Q, codes, scales, sqn, k=k, metric=metric, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/int8"] == before + 1
+    rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k, metric=metric, valid=valid)
+    assert_same_ids(oi, od, ri, rd, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", QPATH_SHAPES + [(2048, 2048, 2048)])
@@ -195,9 +271,39 @@ def test_small_index_build_launches_every_kernel(cuda):
         "hidden": (64,), "train_steps": 50, "batch_pairs": 256,
     }, device=cuda)
     counts = _build.launches()
-    assert counts == {"pdist": 1, "topk": 1, "qpath/minplus": 0, "qpath/minmax": 0,
-                      "qpath/logminplus": 4}
+    assert counts == {"topk/f32": 1, "topk/cube": 0, "topk/int8": 0,
+                      "pdist/matmul": 1, "pdist/cube": 0, "qpath/minplus": 0,
+                      "qpath/minmax": 0, "qpath/logminplus": 4}
     res = index.search(X[:80], k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
     assert (res.dist[:, 1:] >= res.dist[:, :-1]).all()
+
+
+def test_quantized_brute_and_manhattan_index_on_card(cuda):
+    """The slice's two new paths through the registry, counted: brute with
+    the quant key launches the int8 kernel once per search and no f32 scan;
+    a manhattan build launches the cube regimes and no matmul regime."""
+    X = synthetic.make("manifold", 600, seed=2)
+    Q = X[:80]
+    gt = index_lib.build("brute", X, {}, device=cuda).search(Q, k=10)
+    eng = index_lib.build("brute", X, {"quant": True}, device=cuda)
+    _build.reset_launches()
+    res = eng.search(Q, k=10)
+    torch.cuda.synchronize()
+    counts = _build.launches()
+    assert counts["topk/int8"] == 1 and counts["topk/f32"] == 0
+    hits = [len(set(a) & set(b)) for a, b in zip(res.idx.tolist(), gt.idx.tolist())]
+    assert sum(hits) / (10 * len(hits)) >= 0.99
+    _build.reset_launches()
+    index = index_lib.build("infinity", X, {
+        "metric": "manhattan", "proj_sample": 256, "knn_k": 8, "num_hops": 4,
+        "embed_dim": 16, "hidden": (64,), "train_steps": 50, "batch_pairs": 256,
+    }, device=cuda)
+    counts = _build.launches()
+    assert counts["topk/cube"] == 1 and counts["pdist/cube"] == 1
+    assert counts["topk/f32"] == 0 and counts["pdist/matmul"] == 0
+    assert counts["qpath/minmax"] == 4
+    res = index.search(Q, k=5, rerank=32, budget=512)
+    torch.cuda.synchronize()
+    assert res.idx.shape == (80, 5) and (res.idx >= 0).all()

@@ -16,7 +16,7 @@ from repro_torch.core import metrics as tmetrics  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.pdist import ops as pdist_ops  # noqa: E402
 from repro_torch.kernels.pdist.ref import pdist_ref  # noqa: E402
-from torch_parity import assert_close  # noqa: E402
+from torch_parity import assert_close, to_np  # noqa: E402
 
 METRICS = list(jmetrics.METRICS)
 PDIST_SHAPES = [(40, 56, 20), (128, 128, 64), (33, 257, 100)]  # tests/test_kernels.py
@@ -71,6 +71,26 @@ def test_pdist_plain_matches_jax_ref_and_pallas(shape, metric):
     assert_close(out, jpdist_ref(jnp.asarray(X), jnp.asarray(Y), metric=metric))
     assert_close(out, pdist_pallas(jnp.asarray(X), jnp.asarray(Y), metric=metric,
                                    interpret=True))
+
+
+@pytest.mark.parametrize("metric", ["manhattan", "chebyshev"])
+def test_pdist_plain_cube_row_blocks_match_pallas(monkeypatch, metric):
+    """With the intermediate bound forcing ragged row blocks (5 rows of 37),
+    the plain cube matrix still matches the JAX ``_cube_kernel`` (interpret
+    mode); chebyshev exactly."""
+    from repro_torch.kernels.pdist import ref as ref_mod
+
+    rng = np.random.default_rng(21)
+    X = rng.normal(size=(37, 45)).astype(np.float32)
+    Y = rng.normal(size=(70, 45)).astype(np.float32)
+    monkeypatch.setattr(ref_mod, "CUBE_BLOCK_BYTES", 4 * 70 * 45 * 5)
+    out = pdist_ref(torch.as_tensor(X), torch.as_tensor(Y), metric=metric)
+    ref = pdist_pallas(jnp.asarray(X), jnp.asarray(Y), metric=metric, interpret=True)
+    assert out.shape == (37, 70)
+    if metric == "chebyshev":
+        np.testing.assert_array_equal(to_np(out), np.asarray(ref))
+    else:
+        assert_close(out, ref)
 
 
 def test_pdist_ops_cpu_tensors_take_the_plain_version():

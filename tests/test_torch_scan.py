@@ -94,6 +94,52 @@ def test_topk_plain_valid_mask_matches_pallas():
     assert not np.isin(to_np(i), np.arange(0, 64, 3)).any()
 
 
+CUBE_CASES = [  # (m, n, d, k, exclude_self, masked): ragged tails in m, n and d
+    (33, 257, 20, 5, False, False),
+    (40, 300, 37, 10, False, True),
+    (130, 130, 9, 17, True, False),
+    (64, 64, 8, 5, True, True),
+]
+
+
+@pytest.mark.parametrize("metric", ["manhattan", "chebyshev"])
+@pytest.mark.parametrize("case", CUBE_CASES)
+def test_topk_plain_cube_matches_pallas_cube_kernel(metric, case):
+    """The cube regime's plain version against the JAX ``_cube_kernel`` in
+    interpret mode: masks, self-exclusion and ragged tiles.  Chebyshev is a
+    max of exact differences, so its distances are identical; manhattan
+    sums in another order (rtol 1e-5 / atol 5e-4)."""
+    m, n, d, k, excl, masked = case
+    rng = np.random.default_rng([m, n, d])
+    X = rng.normal(size=(m, d)).astype(np.float32)
+    Y = X if excl else rng.normal(size=(n, d)).astype(np.float32)
+    valid = (np.arange(n) % 4 != 1) if masked else None
+    d_, i_ = _against_jax(X, Y, k, metric=metric, exclude_self=excl, valid=valid)
+    if metric == "chebyshev":
+        pd, pi = topk_pallas(jnp.asarray(X), jnp.asarray(Y), k=k, metric=metric,
+                             exclude_self=excl,
+                             valid=None if valid is None else jnp.asarray(valid),
+                             interpret=True)
+        np.testing.assert_array_equal(to_np(d_), np.asarray(pd))
+    if excl:
+        assert (to_np(i_) != np.arange(m)[:, None]).all()
+    if masked:
+        assert not np.isin(to_np(i_), np.arange(1, n, 4)).any()
+
+
+def test_topk_plain_cube_blocks_its_intermediate(monkeypatch):
+    """The plain cube form takes X in row blocks that bound the (rows, n, d)
+    |x - y| intermediate; the blocked answer is the unblocked one."""
+    from repro_torch.kernels.pdist import ref as pdist_ref_mod
+
+    X, Y = _data(50, 200, 12, seed=13)
+    whole = topk_ref(torch.as_tensor(X), torch.as_tensor(Y), k=6, metric="manhattan")
+    monkeypatch.setattr(pdist_ref_mod, "CUBE_BLOCK_BYTES", 4 * 200 * 12 * 7)
+    assert pdist_ref_mod.cube_rows(200, 12) == 7
+    blocked = topk_ref(torch.as_tensor(X), torch.as_tensor(Y), k=6, metric="manhattan")
+    assert torch.equal(whole[0], blocked[0]) and torch.equal(whole[1], blocked[1])
+
+
 @pytest.mark.parametrize("block", [16, 4096])
 def test_topk_scan_matches_jax_scan(block):
     X, Y = _data(25, 500, 16, seed=5)

@@ -167,6 +167,49 @@ def test_fashion_like_recall_tracks_jax():
     assert abs(recalls[0] - recalls[1]) <= 0.05
 
 
+@pytest.fixture(scope="module")
+def manhattan_pair(data):
+    """A JAX-built manhattan index and the port index loaded from it."""
+    import dataclasses
+
+    X, _ = data
+    jidx = JaxIndex.build(jnp.asarray(X), dataclasses.replace(
+        REDUCED, metric="manhattan", train_steps=60))
+    arrays, statics = jidx.snapshot_state()
+    arrays = jax.tree_util.tree_map(np.asarray, arrays)
+    return jidx, convert.index_from_jax_state(arrays, statics, device=CPU)
+
+
+@pytest.mark.parametrize("mode,k,kw", [
+    ("descend", 1, {}),
+    ("best_first", 5, {"budget": 300, "rerank": 32}),
+    ("beam", 10, {"budget": 300, "rerank": 64}),
+])
+def test_manhattan_index_matches_jax(manhattan_pair, data, mode, k, kw):
+    """All three modes on a manhattan index: the tree is searched in the
+    embedding, the rerank scores candidates in manhattan."""
+    jidx, tidx = manhattan_pair
+    _, Q = data
+    assert tidx.config.metric == "manhattan"
+    jr = jidx.search(jnp.asarray(Q), k=k, mode=mode, **kw)
+    tr = tidx.search(Q, k=k, mode=mode, **kw)
+    assert_same_ids(tr.idx, tr.dist, jr.idx, jr.dist)
+    np.testing.assert_array_equal(to_np(tr.comparisons), np.asarray(jr.comparisons))
+
+
+def test_manhattan_build_stages_match_jax(data):
+    """The kNN ids and D of a manhattan build's subset (the cube regimes of
+    the topk and pdist kernels, here their plain versions) against JAX."""
+    X, _ = data
+    S = X[:256]
+    ji, jd = jknn.knn_graph(jnp.asarray(S), k=8, metric="manhattan")
+    ti, td = tknn.knn_graph(torch.as_tensor(S), k=8, metric="manhattan")
+    assert_same_ids(ti, td, ji, jd)
+    JD = jmetrics.pairwise(jnp.asarray(S), jnp.asarray(S), metric="manhattan")
+    TD = tmetrics.pairwise(torch.as_tensor(S), torch.as_tensor(S), metric="manhattan")
+    np.testing.assert_allclose(to_np(TD), np.asarray(JD), rtol=1e-5, atol=5e-4)
+
+
 def test_refresh_reembeds_without_training(pair, data):
     _, tidx = pair
     X, Q = data
@@ -184,10 +227,12 @@ def test_registry_build_defaults_and_reserved_keys(data):
     idx = index_lib.build("infinity", X[:120], small | {"rerank": 8, "budget": 50},
                           device=CPU)
     assert idx.search_defaults == {"rerank": 8, "budget": 50}
-    assert index_lib.available() == ("infinity",)
-    for key in ("attrs", "quant", "chaos"):
+    assert index_lib.available() == ("brute", "infinity")
+    for key in ("attrs", "chaos"):
         with pytest.raises(NotImplementedError, match=key):
             index_lib.build("infinity", X[:120], small | {key: True}, device=CPU)
+    assert index_lib.build("infinity", X[:120], small | {"quant": True},
+                           device=CPU).quant.rows == 120
     with pytest.raises(TypeError, match="unknown cfg keys"):
         index_lib.build("infinity", X[:120], {"nprobe": 3}, device=CPU)
 

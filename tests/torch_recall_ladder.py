@@ -4,11 +4,15 @@
         --config reduced --sizes 4000 8000 16000 32000
     PYTHONPATH=src python tests/torch_recall_ladder.py --package port \
         --device cuda --config default --sizes 4000 8000 16000 32000 60000
+    PYTHONPATH=src python tests/torch_recall_ladder.py --package both \
+        --metric manhattan --sizes 4000
 
 For each corpus size n the same ``fashion_like(n + 256, seed=0)`` pool is
 split into corpus and queries, an ``InfinityIndex`` is built at q=inf with
-the chosen config, and one beam search (k=10, budget 1024, rerank 256) is
-held against the exact top 10 (the port's ``topk_scan``).  ``--config
+the chosen config and ``--metric`` (the original dissimilarity: the kNN
+graph, D and the rerank use it), and one beam search (k=10, budget 1024,
+rerank 256) is held against the exact top 10 in that metric (the port's
+``topk_scan``).  ``--config
 reduced`` is proj_sample 512 / 300 training steps; ``default`` is
 ``IndexConfig()``, the config ``chip_smoke.py`` builds at n=60000.
 
@@ -67,17 +71,19 @@ def main(argv=None) -> int:
     ap.add_argument("--config", choices=tuple(CONFIGS), default="reduced")
     ap.add_argument("--sizes", type=int, nargs="+", default=[4000, 8000, 16000, 32000])
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--metric", default="euclidean")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
 
     packages = ("jax", "port") if args.package == "both" else (args.package,)
-    cfg = CONFIGS[args.config]
+    cfg = dict(CONFIGS[args.config], metric=args.metric)
     rows = []
     for n in args.sizes:
         pool = synthetic.fashion_like(n + QUERIES, seed=SEED)
         X, Q = pool[:n], pool[n:]
         _, gt = tscan.topk_scan(torch.as_tensor(Q, device=args.device),
-                                torch.as_tensor(X, device=args.device), k=10)
+                                torch.as_tensor(X, device=args.device), k=10,
+                                metric=args.metric)
         gt = gt.cpu().numpy()
         for package in packages:
             t0 = time.perf_counter()
@@ -85,7 +91,8 @@ def main(argv=None) -> int:
                 ids, val = build_port(X, Q, cfg, args.device)
             else:
                 ids, val = build_jax(X, Q, cfg)
-            row = {"package": package, "config": args.config, "n": n,
+            row = {"package": package, "config": args.config,
+                   "metric": args.metric, "n": n,
                    "queries": QUERIES, "device": args.device if package == "port" else "cpu",
                    "beam_recall@10": recall(ids, gt),
                    "nn_overlap10": float(val["nn_overlap10"]),
