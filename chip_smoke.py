@@ -14,7 +14,13 @@ Phases, in order; any failure exits non-zero:
    chebyshev) and the ground truth (10000x60000x784, k=10; euclidean,
    manhattan); the int8 topk for one quantized-brute serve batch
    (512x60000x784, K=64) and the whole query set (10000x60000x784); qpath
-   2048^3 in all three modes.  Each prints its error, id agreement, the
+   2048^3 in all three modes; the topk kernels at k = 600 (past the
+   shared-memory lists) on one brute batch (512x60000x784: euclidean,
+   manhattan, int8); the embedding bag at DeepFM's shapes (the (V, 1)
+   first-order table at serve_bulk and serve_p99, the (V, 10) table for
+   the user embeddings of retrieval_cand and the infinity retrieval, and
+   D = 1 / 10 sum / mean rows with padding ids and weights at the
+   serve_bulk batch).  Each prints its error, id agreement, the
    kernel's time (CUDA events after warm-up), the plain version's time, the
    time of one PyTorch call that computes the same function where there is
    one, and the bound (the least time the card could take).
@@ -46,6 +52,20 @@ Phases, in order; any failure exits non-zero:
    cube topk; beam, best-first and descent serve it, reranking in
    manhattan.  Beam recall@10 must reach ``MANHATTAN_RECALL_FLOOR`` and
    best-first ``MANHATTAN_BEST_FIRST_FLOOR``.
+7. Recsys serving at full width (``configs.get(arch)``, 39 Criteo-shaped
+   fields, a 30226432-row table, random weights from ``--seed``): DeepFM
+   at serve_p99 (512), serve_bulk (262144) and retrieval_cand (1 query x
+   1000000 candidates, k=100), FM, xDeepFM and AutoInt at serve_p99, one
+   model on the card at a time.  Each window is counted and must launch
+   the embedding bag once per call and nothing else; each prints p50 ms,
+   examples/s, peak memory and the kernel path's logits (or retrieval ids)
+   against the same step with the plain bag (which must launch nothing).
+   Then ``examples/recsys_retrieval.py``'s flow over DeepFM user
+   embeddings: 20000 random-normal candidates and 32 users, both
+   L2-normalised, an ``InfinityIndex`` (q=2) searched best-first, recall@10
+   against the exact cosine top-10 (at least ``INF_RETRIEVAL_FLOOR``); its
+   window launches the bag, the f32 topk, the matmul pdist and six
+   logminplus sweeps.
 
 The line before the last is a JSON object listing every kernel row, each
 with the launches of the window that runs it (``path``); the last is
@@ -55,6 +75,8 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import os
@@ -116,9 +138,36 @@ BENCH_N, BENCH_Q = 2048, 512  # benchmarks/bench_infinity.py defaults
 QPATH_PATHS = {"minmax": "full-width build", "minplus": None,
                "logminplus": "bench-config build q=2"}
 NO_CHEBYSHEV = "none: no chebyshev window on the main path"
+# topk past the shared-memory lists (k > 512): no engine on the main path
+# asks for it
+WIDE_K = 600
+NO_WIDE_K = "none: no engine asks for k > 512 on the main path"
+# the embedding bag and its plain version round the same products and sums
+# in the same order: 0 is expected
+BAG_ATOL = 1e-6
+NO_BAG_EXTRAS = "none: served ids carry no padding and no weights"
+NO_BAG_D10_BULK = "none: no window pools embedding rows at the serve_bulk batch"
+# recsys logits (or retrieval scores) of the kernel path against the plain
+# bag's: the same weights and ids, bit-identical bags, so 0 is expected;
+# the stated tolerance is the CPU parity tests'
+RECSYS_RTOL = RECSYS_ATOL = 1e-5
+RECSYS_ARCHS = ("deepfm", "fm", "xdeepfm", "autoint")
+SERVE_REPS = {"serve_p99": 30, "serve_bulk": 10}  # timed, after 2 warm-ups
+RETRIEVAL_REPS = 20
+RETRIEVAL_K = 100  # train_step.make_retrieval_step's default
+# examples/recsys_retrieval.py: candidates, users, the index and the search
+INF_CANDIDATES, INF_USERS = 20000, 32
+INF_INDEX = dict(q=2.0, metric="euclidean", proj_sample=1000, train_steps=800,
+                 embed_dim=16, hidden=(128, 128))
+INF_SEARCH = dict(k=10, mode="best_first", max_comparisons=384, rerank=128)
+# recall@10 of that flow read 0.2406 / 0.3656 / 0.3906 / 0.3844 in the port
+# and 0.3625 / 0.3219 / 0.3531 / 0.3344 in JAX on the CPU (seeds 0-3, the
+# same users and candidates in both); the floor sits under the lowest
+# reading and far above unrelated rows (10 / 20000)
+INF_RETRIEVAL_FLOOR = 0.15
 #: every launch counter, zero unless a window requires otherwise
 COUNTERS = ("topk/f32", "topk/cube", "topk/int8", "pdist/matmul", "pdist/cube",
-            "qpath/minplus", "qpath/minmax", "qpath/logminplus")
+            "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag")
 
 
 def log(msg: str) -> None:
@@ -221,10 +270,12 @@ def _ptxas_summary(report: str) -> dict:
         if m:
             name = m.group(1)
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
-                          "qpath_kernel"):
+                          "qpath_kernel", "bag_kernel"):
                 if short in name:
-                    mode = re.search(r"ILi(\d)E", name)
-                    name = short + (f"<{mode.group(1)}>" if mode else "")
+                    # template arguments: int family / mode, bool lists
+                    args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
+                    name = short + (f"<{','.join(args)}>" if args else "")
+                    break
             continue
         m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?(.*)", line)
         if m and name:
@@ -329,6 +380,9 @@ def phase_kernels(seed: int) -> list[dict]:
         ("kNN graph", "manhattan build", "manhattan", S, S, 16, True),
         ("ground truth", "manhattan ground truth", "manhattan", queries, corpus, 10, False),
         ("kNN graph", None, "chebyshev", S, S, 16, True),
+        # k > 512: the running lists live in the output buffers
+        ("wide k: brute batch", None, "euclidean", slice_q, corpus, WIDE_K, False),
+        ("wide k: brute batch", None, "manhattan", slice_q, corpus, WIDE_K, False),
     ):
         cube = metric != "euclidean"
         m, n, d = Xq.shape[0], Y.shape[0], Xq.shape[1]
@@ -358,7 +412,7 @@ def phase_kernels(seed: int) -> list[dict]:
                                     + (" exclude_self" if excl else "")
                                     + (f" (held to plain on {held} queries)"
                                        if held < m else ""),
-            "path": path, "idle": None if path else NO_CHEBYSHEV,
+            "path": path, "idle": None if path else (NO_WIDE_K if k > 512 else NO_CHEBYSHEV),
             "counter": "topk/cube" if cube else "topk/f32",
             "source": "src/repro_torch/csrc/topk.cu",
             "replaces": "src/repro/kernels/topk/topk.py:" + ("171" if cube else "123"),
@@ -382,12 +436,16 @@ def phase_kernels(seed: int) -> list[dict]:
     # over the corpus's codes, for one serve batch and the whole query set
     codes, scales, sqn = quant_lib.QuantStore.build(corpus).device_view()
     n, d = codes.shape
-    for case, Xq in (("serve batch", slice_q), ("whole query set", queries)):
+    for case, path, Xq, k in (
+        ("serve batch", "quantized brute serve", slice_q, K_QUANT),
+        ("whole query set", "quantized brute serve", queries, K_QUANT),
+        ("wide k: serve batch", None, slice_q, WIDE_K),
+    ):
         m = Xq.shape[0]
-        od, oi = topk_quant_cuda(Xq, codes, scales, sqn, k=K_QUANT)
-        rd, ri = topk_quant_ref(Xq, codes, scales, sqn, k=K_QUANT + 1)
-        err, ok = close_matmul(od, rd[:, :K_QUANT], rtol=INT8_TOL, atol=INT8_TOL)
-        same, ids_ok = ids_agree(oi, ri, rd, K_QUANT, rtol=INT8_TOL, atol=INT8_TOL)
+        od, oi = topk_quant_cuda(Xq, codes, scales, sqn, k=k)
+        rd, ri = topk_quant_ref(Xq, codes, scales, sqn, k=k + 1)
+        err, ok = close_matmul(od, rd[:, :k], rtol=INT8_TOL, atol=INT8_TOL)
+        same, ids_ok = ids_agree(oi, ri, rd, k, rtol=INT8_TOL, atol=INT8_TOL)
         if not (ok and ids_ok):
             fail(f"topk int8 ({case}) disagrees with its plain version "
                  f"(max err {err}, identical ids {same})")
@@ -397,23 +455,21 @@ def phase_kernels(seed: int) -> list[dict]:
             xq, alpha, xn = quantize_queries(Xq, scales)
             acc = torch._int_mm(xq, codes.T)
             d2 = (xn[:, None] + sqn[None, :] - 2.0 * (acc.float() * alpha[:, None]))
-            return torch.topk(torch.sqrt(d2.clamp_min(0.0)), K_QUANT, dim=1,
-                              largest=False)
+            return torch.topk(torch.sqrt(d2.clamp_min(0.0)), k, dim=1, largest=False)
 
         reps = 20 if m == BATCH else 3
         rows.append({
             "name": "topk_int8", "case": f"quantized brute {case} {m}x{n}x{d} "
-                                         f"K={K_QUANT} euclidean",
-            "path": "quantized brute serve", "counter": "topk/int8",
+                                         f"K={k} euclidean",
+            "path": path, "idle": None if path else NO_WIDE_K, "counter": "topk/int8",
             "source": "src/repro_torch/csrc/topk_int8.cu",
             "replaces": "src/repro/kernels/topk/topk.py:207",
             "max_abs_err": err, "ids_identical": same,
-            "ms": cuda_ms(lambda: topk_quant_cuda(Xq, codes, scales, sqn, k=K_QUANT), reps),
-            "plain_ms": cuda_ms(lambda: topk_quant_ref(Xq, codes, scales, sqn, k=K_QUANT),
-                                reps),
+            "ms": cuda_ms(lambda: topk_quant_cuda(Xq, codes, scales, sqn, k=k), reps),
+            "plain_ms": cuda_ms(lambda: topk_quant_ref(Xq, codes, scales, sqn, k=k), reps),
             "library_ms": cuda_ms(library, reps),
             "bound": _bound(ops=2 * m * n * d, rate=INT8_OPS,
-                            nbytes=m * d + n * d + 4 * (2 * m + n) + 8 * m * K_QUANT),
+                            nbytes=m * d + n * d + 4 * (2 * m + n) + 8 * m * k),
         })
         log("kernel " + json.dumps(rows[-1]))
     del pool, corpus, queries, codes
@@ -455,6 +511,122 @@ def phase_kernels(seed: int) -> list[dict]:
             "bound": bound,
         })
         log("kernel " + json.dumps(rows[-1]))
+    rows += _bag_rows(seed)
+    return rows
+
+
+def _bag_bound(ids, D: int, weighted: bool) -> dict:
+    """Bytes the bag must move: each distinct 32-byte sector of the table
+    rows its ids name (a D * 4-byte row spans whole sectors; a row several
+    lookups share is read once), the ids (and weights) once, the (B, D)
+    output once.  ``gathered_bytes`` counts the sectors per lookup instead
+    (no reuse)."""
+    import torch
+
+    B, S = ids.shape
+    row = 4 * D
+    start = ids.clamp_min(0).long().reshape(-1) * row
+    first, last = start // 32, (start + row - 1) // 32
+    span = int((last - first).max()) + 1
+    sectors = torch.cat([(first + j)[first + j <= last] for j in range(span)])
+    distinct = int(torch.unique(sectors).numel())
+    per_call = 4 * B * S * (2 if weighted else 1) + 4 * B * D
+    bound = _bound(ops=2 * B * S * D, rate=F32_INSTR,
+                   nbytes=32 * distinct + per_call)
+    bound["gathered_bytes"] = 32 * int(sectors.numel()) + per_call
+    return bound
+
+
+def _bag_rows(seed: int) -> list[dict]:
+    """The embedding bag at DeepFM's full-width shapes: its (V, 1) and
+    (V, embed_dim) tables (random, scale 0.01 as declared) and ids from
+    ``recsys_batch`` as phase 7 serves them, plus padding / weight / mean
+    rows at the serve_bulk batch."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.kernels.bag.bag import embedding_bag_cuda
+    from repro_torch.kernels.bag.ref import effective_weights, embedding_bag_ref
+    from repro_torch.models import recsys as recsys_lib
+
+    dev = torch.device(DEVICE)
+    sizes = {shape.name: shape.batch for shape in RECSYS_SHAPES}
+    cfg = configs.get("deepfm")
+    V = recsys_lib._padded_vocab(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tables = {D: torch.randn((V, D), generator=g, device=dev).mul_(0.01)
+              for D in (1, cfg.embed_dim)}
+    offsets = recsys_lib.field_offsets(cfg, dev)
+
+    def flat(step: int, batch: int):
+        ids = recsys_batch(step, batch, cfg.vocabs, seed=seed)["ids"]
+        return torch.as_tensor(ids, device=dev) + offsets[None, :]
+
+    bulk = flat(0, sizes["serve_bulk"])
+    rng = np.random.default_rng(seed)
+    padded = torch.where(torch.as_tensor(rng.random(bulk.shape) < 0.1, device=dev),
+                         -1, bulk)
+    padded[0] = -1  # an all-padding bag
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, size=bulk.shape).astype(np.float32),
+                        device=dev)
+    B_bulk, E = bulk.shape[0], cfg.embed_dim
+    cases = (
+        ("first-order term, DeepFM serve_bulk", 1, bulk, None, "sum", "deepfm serve_bulk"),
+        ("first-order term, DeepFM serve_p99", 1, flat(0, sizes["serve_p99"]), None,
+         "sum", "deepfm serve_p99"),
+        ("user embedding, DeepFM retrieval_cand", E, flat(0, sizes["retrieval_cand"]),
+         None, "sum", "deepfm retrieval_cand"),
+        ("user embeddings, infinity retrieval", E, flat(1, INF_USERS), None, "sum",
+         "infinity retrieval"),
+        (f"pooled embeddings at the serve_bulk batch {B_bulk}", E, bulk, None, "sum", None),
+        ("10 % padding ids, weights, sum", 1, padded, w, "sum", None),
+        ("10 % padding ids, weights, sum", E, padded, w, "sum", None),
+        ("10 % padding ids, weights, mean", 1, padded, w, "mean", None),
+        ("10 % padding ids, weights, mean", E, padded, w, "mean", None),
+    )
+    rows = []
+    for case, D, ids, wts, combine, path in cases:
+        table = tables[D]
+        B, S = ids.shape
+        out = embedding_bag_cuda(table, ids, wts, combine=combine)
+        ref = embedding_bag_ref(table, ids, wts, combine=combine)
+        err = float((out - ref).abs().max())
+        if not (bool(torch.isfinite(out).all()) and err <= BAG_ATOL):
+            fail(f"bag {case} D={D} disagrees with its plain version (max err {err})")
+        library_ms = None
+        if combine == "sum":
+            # the same function by PyTorch's own bag: the padding ids clamped
+            # and their weights zeroed
+            safe = ids.clamp_min(0).long()
+            pw = (effective_weights(ids, wts)
+                  if wts is not None or bool((ids < 0).any()) else None)
+            lib = F.embedding_bag(safe, table, mode="sum", per_sample_weights=pw)
+            if not torch.allclose(lib, ref, rtol=1e-5, atol=1e-6):
+                fail(f"F.embedding_bag disagrees on {case} D={D}")
+            library_ms = cuda_ms(
+                lambda: F.embedding_bag(safe, table, mode="sum", per_sample_weights=pw), 20)
+        reps = 20 if B * S < 10 ** 6 else 10
+        rows.append({
+            "name": "bag", "case": f"{case} {B}x{S} D={D} {combine}",
+            "path": path, "idle": None if path else (
+                NO_BAG_D10_BULK if wts is None else NO_BAG_EXTRAS),
+            "counter": "bag", "source": "src/repro_torch/csrc/bag.cu",
+            "replaces": "src/repro/kernels/bag/bag.py:30",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: embedding_bag_cuda(table, ids, wts, combine=combine), reps),
+            "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, wts, combine=combine),
+                                reps),
+            "library_ms": library_ms,
+            "bound": _bag_bound(ids, D, wts is not None),
+        })
+        log("kernel " + json.dumps(rows[-1]))
+    del tables
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -772,6 +944,230 @@ def phase_manhattan(corpus, Qt) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: recsys serving at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_bag():
+    """Within: the recsys model's embedding bags run the plain version on
+    the card (it launches no kernel) — what each window's kernel path is
+    held against."""
+    from repro_torch.kernels.bag.ref import embedding_bag_ref
+    from repro_torch.models import recsys as recsys_lib
+
+    saved = recsys_lib.embedding_bag
+    recsys_lib.embedding_bag = embedding_bag_ref
+    try:
+        yield
+    finally:
+        recsys_lib.embedding_bag = saved
+
+
+def _timed_calls(fn, reps: int):
+    """Two warm-up calls, then ``reps`` calls, each synchronised and timed
+    on the host clock.  Returns (the last result, seconds per timed call)."""
+    import torch
+
+    times = []
+    for i in range(reps + 2):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def _mlp_gflop(cfg, batch: int) -> float:
+    D, Fs = cfg.embed_dim, cfg.n_sparse
+    if cfg.interaction == "fm2" or not cfg.mlp:
+        return 0.0
+    dims = (Fs * D,) + tuple(cfg.mlp) + (1,)
+    return 2.0 * batch * sum(a * b for a, b in zip(dims, dims[1:])) / 1e9
+
+
+def _recsys_serve(arch: str, cfg, model, shape, seed: int) -> dict:
+    """One serve window (``make_serve_step``) at ``shape``: p50, examples/s,
+    peak memory; the logits against the plain bag's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.models import recsys as recsys_lib
+    from repro_torch.train.train_step import make_serve_step
+
+    B = shape.batch
+    ids = torch.as_tensor(recsys_batch(0, B, cfg.vocabs, seed=seed)["ids"], device=DEVICE)
+    serve = make_serve_step(cfg, "recsys")
+    reps = SERVE_REPS[shape.name]
+    torch.cuda.reset_peak_memory_stats()
+    (probs, times), counts = counted(
+        lambda: _timed_calls(lambda: serve(model, {"ids": ids}), reps))
+    peak = torch.cuda.max_memory_allocated()
+    what = f"{arch} {shape.name}"
+    require(counts, {"bag": reps + 2}, what)
+    if tuple(probs.shape) != (B,) or not bool(torch.isfinite(probs).all()):
+        fail(f"{what}: probabilities of shape {tuple(probs.shape)}, finite "
+             f"{bool(torch.isfinite(probs).all())}")
+    with torch.inference_mode():
+        logits = recsys_lib.recsys_forward(model, ids, cfg)
+        with plain_bag():
+            plain, plain_counts = counted(lambda: recsys_lib.recsys_forward(model, ids, cfg))
+    require(plain_counts, {}, f"{what} with the plain bag")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{what}: non-finite logits")
+    err, ok = close_matmul(logits, plain, rtol=RECSYS_RTOL, atol=RECSYS_ATOL)
+    if not ok:
+        fail(f"{what}: logits off the plain bag's by {err}")
+    p50 = float(np.median(times))
+    return {"arch": arch, "shape": shape.name, "batch": B,
+            "p50_ms": p50 * 1e3, "examples_per_s": B / p50,
+            "mean_ms": float(np.mean(times)) * 1e3, "calls_timed": reps,
+            "peak_memory_bytes": int(peak), "mlp_gflop": _mlp_gflop(cfg, B),
+            "logits_max_abs_err_vs_plain_bag": err,
+            "logits_mean_abs": float(logits.abs().mean()),
+            "launches": counts, "plain_bag_launches": plain_counts}
+
+
+def _recsys_retrieval(cfg, model, shape, seed: int) -> dict:
+    """The retrieval_cand window (``make_retrieval_step``): 1 query against
+    ``shape.n_candidates`` random candidates, top RETRIEVAL_K."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.train.train_step import make_retrieval_step
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    batch = {"ids": torch.as_tensor(recsys_batch(0, shape.batch, cfg.vocabs,
+                                                 seed=seed)["ids"], device=dev),
+             "candidates": torch.randn((shape.n_candidates, cfg.embed_dim),
+                                       generator=g, device=dev)}
+    step = make_retrieval_step(cfg, k=RETRIEVAL_K)
+    torch.cuda.reset_peak_memory_stats()
+    ((scores, ids), times), counts = counted(
+        lambda: _timed_calls(lambda: step(model, batch), RETRIEVAL_REPS))
+    peak = torch.cuda.max_memory_allocated()
+    require(counts, {"bag": RETRIEVAL_REPS + 2}, "deepfm retrieval_cand")
+    with plain_bag():
+        (pscores, pids), plain_counts = counted(lambda: step(model, batch))
+    require(plain_counts, {}, "deepfm retrieval_cand with the plain bag")
+    if not (torch.equal(ids, pids) and torch.equal(scores, pscores)):
+        fail("retrieval_cand: ids or scores differ from the plain bag's")
+    # the k largest scores, whatever their tie order, by one library call
+    with torch.inference_mode():
+        from repro_torch.models.recsys import user_embedding
+
+        full = user_embedding(model, batch["ids"], cfg) @ batch["candidates"].T
+    top = torch.topk(full, RETRIEVAL_K, dim=1).values
+    if not (torch.equal(scores, top) and tuple(ids.shape) == (shape.batch, RETRIEVAL_K)
+            and bool(torch.isfinite(scores).all())
+            and int(torch.unique(ids).numel()) == RETRIEVAL_K):
+        fail("retrieval_cand: the top-k scores are not the k largest")
+    p50 = float(np.median(times))
+    return {"arch": "deepfm", "shape": shape.name, "batch": shape.batch,
+            "candidates": shape.n_candidates, "k": RETRIEVAL_K,
+            "p50_ms": p50 * 1e3, "queries_per_s": shape.batch / p50,
+            "calls_timed": RETRIEVAL_REPS, "peak_memory_bytes": int(peak),
+            "ids_identical_to_plain_bag": True, "launches": counts,
+            "plain_bag_launches": plain_counts,
+            "selection": "stable descending sort of the scores (lax.top_k's tie rule)"}
+
+
+def _infinity_retrieval(cfg, model, seed: int) -> dict:
+    """``examples/recsys_retrieval.py``'s flow with full-width DeepFM user
+    embeddings: one counted window from the user embeddings to the search."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.search import IndexConfig, InfinityIndex
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.models.recsys import user_embedding
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+    cand = torch.as_tensor(rng.normal(size=(INF_CANDIDATES, cfg.embed_dim))
+                           .astype(np.float32), device=dev)
+    ids = torch.as_tensor(recsys_batch(1, INF_USERS, cfg.vocabs, seed=seed)["ids"],
+                          device=dev)
+
+    def run():
+        with torch.no_grad():
+            users = user_embedding(model, ids, cfg)
+        un = users / users.norm(dim=1, keepdim=True)
+        cn = cand / cand.norm(dim=1, keepdim=True)
+        t0 = time.perf_counter()
+        index = InfinityIndex.build(cn, IndexConfig(**INF_INDEX), device=dev)
+        build_s = time.perf_counter() - t0
+        res = index.search(un, **INF_SEARCH)
+        return un, cn, index, build_s, res
+
+    t0 = time.perf_counter()
+    (un, cn, index, build_s, res), counts = counted(run)
+    total_s = time.perf_counter() - t0
+    require(counts, {"bag": 1, "topk/f32": 1, "pdist/matmul": 1,
+                     "qpath/logminplus": NUM_HOPS}, "infinity retrieval")
+    _check_result(res, INF_USERS, INF_SEARCH["k"], INF_CANDIDATES, "infinity retrieval")
+    exact = torch.sort(-(un @ cn.T), dim=1, stable=True).indices[:, :INF_SEARCH["k"]]
+    row = {"arch": "deepfm", "shape": "infinity retrieval", "users": INF_USERS,
+           "candidates": INF_CANDIDATES, "index": INF_INDEX, "search": INF_SEARCH,
+           "recall@10": _recall(res.idx, exact, INF_SEARCH["k"]),
+           "mean_comparisons": float(res.comparisons.float().mean()),
+           "build_seconds": build_s, "window_seconds": total_s,
+           "stage_seconds": index.train_history["stage_seconds"],
+           "launches": counts}
+    if row["recall@10"] < INF_RETRIEVAL_FLOOR:
+        fail(f"infinity retrieval recall@10 {row['recall@10']} < {INF_RETRIEVAL_FLOOR}")
+    return row
+
+
+def phase_recsys(seed: int) -> list[dict]:
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.models.recsys import RecsysModel, _padded_vocab
+
+    shapes = {s.name: s for s in RECSYS_SHAPES}
+    dev = torch.device(DEVICE)
+    rows = []
+    for arch in RECSYS_ARCHS:
+        cfg = configs.get(arch)
+        t0 = time.perf_counter()
+        model = RecsysModel.build(cfg, device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        table = (_padded_vocab(cfg), cfg.embed_dim)
+        served = ("serve_p99", "serve_bulk", "retrieval_cand") if arch == "deepfm" \
+            else ("serve_p99",)
+        for name in served:
+            if shapes[name].kind == "retrieval":
+                row = _recsys_retrieval(cfg, model, shapes[name], seed)
+            else:
+                row = _recsys_serve(arch, cfg, model, shapes[name], seed)
+            row.update(table=list(table), init_seconds=init_s)
+            rows.append(row)
+            log("recsys " + json.dumps(row))
+        if arch == "deepfm":
+            rows.append(_infinity_retrieval(cfg, model, seed))
+            log("recsys " + json.dumps(rows[-1]))
+        if arch == "xdeepfm":
+            B = shapes["serve_bulk"].batch
+            cin = 4 * B * max(cfg.cin_layers) * cfg.n_sparse * cfg.embed_dim
+            rows.append({"arch": arch, "shape": "serve_bulk", "served": False,
+                         "why": f"the CIN's ({B}, {max(cfg.cin_layers)}, {cfg.n_sparse}, "
+                                f"{cfg.embed_dim}) f32 outer product is {cin} bytes, "
+                                "more than one 80 GB card holds"})
+            log("recsys " + json.dumps(rows[-1]))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -800,6 +1196,8 @@ def main(argv=None) -> int:
     quant = phase_quant(corpus, Qt, main_state, bench, parity)
     del main_state
     manhattan = phase_manhattan(corpus, Qt)
+    del corpus, Qt
+    recsys = phase_recsys(args.seed)
 
     windows = {"full-width build": main_path["launches"]["build"],
                "full-width ground truth": main_path["launches"]["ground_truth"],
@@ -808,6 +1206,9 @@ def main(argv=None) -> int:
     windows.update({f"bench-config build q={p['q']}": p["launches"] for p in parity})
     windows["quantized brute serve"] = next(
         r["launches"] for r in quant if r["engine"] == "brute+quant")
+    windows.update({f"{r['arch']} {r['shape']}" if r["shape"] != "infinity retrieval"
+                    else "infinity retrieval": r["launches"]
+                    for r in recsys if "launches" in r})
     kernels = []
     for row in rows:
         path = row["path"]

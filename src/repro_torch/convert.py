@@ -8,7 +8,9 @@ both packages can be held to one index:
 * ``index_from_jax_state`` — ``InfinityIndex`` (X, Z, Phi, VP tree);
 * ``brute_from_jax_state`` — ``BruteIndex``;
 * ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
-  the squared norms are recomputed, as every store derives them).
+  the squared norms are recomputed, as every store derives them);
+* ``recsys_params_from_jax`` — ``RecsysModel`` from a JAX recsys params
+  tree.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from repro_torch.core.baselines import BruteIndex
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import params as params_lib
+from repro_torch.models import recsys as recsys_lib
 
 
 def phi_from_params(params: Mapping[str, Any], device: torch.device) -> embed_lib.Phi:
@@ -82,3 +86,25 @@ def quant_store_from_jax(arrays: Mapping[str, Any], *,
     """``arrays``: {"codes", "scales"} as numpy.  Returns the port store
     whose views go to ``device``."""
     return quant_lib.QuantStore.from_snapshot(arrays, {}, device=device)
+
+
+def recsys_params_from_jax(params_np: Mapping[str, Any], cfg, *,
+                           device: DeviceLike = None) -> recsys_lib.RecsysModel:
+    """A ``RecsysModel`` for ``cfg`` from the JAX params tree (dicts and
+    lists of numpy arrays, as ``init_params`` of ``recsys_decls`` gives
+    them).  The port keeps JAX's layouts (``x @ w``, w (fan-in,
+    fan-out)), so nothing is transposed; each leaf must have its
+    declaration's shape."""
+    dev = resolve_device(device)
+
+    def take(path: str, decl) -> torch.Tensor:
+        node: Any = params_np
+        for key in path.split("."):
+            node = node[int(key)] if isinstance(node, (list, tuple)) else node[key]
+        arr = np.asarray(node, np.float32)
+        if arr.shape != decl.shape:
+            raise ValueError(f"{path}: shape {arr.shape}, declared {decl.shape}")
+        return torch.tensor(arr, device=dev)
+
+    tree = params_lib.map_decls(take, recsys_lib.recsys_decls(cfg))
+    return recsys_lib.RecsysModel(cfg, tree)

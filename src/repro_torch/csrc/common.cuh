@@ -79,9 +79,18 @@ __device__ __forceinline__ float accumulate(float acc, float x, float y) {
 constexpr int SEL_ROWS = 32;
 constexpr int SEL_COLS = 64;
 constexpr int SEL_THREADS = 256;
-// Largest k: the running lists take SEL_ROWS * k * 8 bytes of dynamic
-// shared memory (128 KB at k = 512), opted in with cudaFuncSetAttribute.
-constexpr int SEL_MAX_K = 512;
+// Largest k whose running lists sit in shared memory: SEL_ROWS * k * 8
+// bytes of dynamic shared memory (128 KB at k = 512), opted in with
+// cudaFuncSetAttribute.  Above it the lists live in global memory, in the
+// (m, k) output buffers themselves (the kernels' GLOBAL_LISTS instance):
+// 32 rows of 8-byte entries do not fit in 227 KB past k ~ 850, and fewer
+// rows per block would change the strip and tile that every instance
+// shares.  A global list is merged by the whole warp (warp_insert_sorted):
+// one lane shifting k entries through L1/L2 one at a time, as the shared
+// lists are, made a 512 x 60000 x 784 scan at k = 600 take 485-619 ms on
+// an H100 (NVIDIA H100 80GB HBM3, 700 W) against 6.3 ms for the plain
+// version.
+constexpr int SEL_SMEM_MAX_K = 512;
 
 __device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
                                               float v, int col) {
@@ -94,6 +103,43 @@ __device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
   }
   bd[p] = v;
   bi[p] = col;
+}
+
+// insert_sorted for a list in global memory, by all 32 lanes of a warp
+// (called with warp-uniform arguments): the position is the count of
+// entries <= v (the list ascends, so after every equal entry), summed
+// over the lanes' strided slices; the tail then moves up one slot 32
+// entries at a time, top chunk first, each chunk read before it is
+// written.
+__device__ __forceinline__ void warp_insert_sorted(float* bd, int* bi, int k,
+                                                   float v, int col,
+                                                   int lane) {
+  if (!(v < bd[k - 1])) return;
+  int p = 0;
+  for (int e = lane; e < k; e += 32) p += bd[e] <= v ? 1 : 0;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+  for (int top = k - 1; top > p; top -= 32) {
+    const int dst = top - lane;
+    const bool moves = dst > p;
+    float dv = 0.0f;
+    int di = 0;
+    if (moves) {
+      dv = bd[dst - 1];
+      di = bi[dst - 1];
+    }
+    __syncwarp();
+    if (moves) {
+      bd[dst] = dv;
+      bi[dst] = di;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    bd[p] = v;
+    bi[p] = col;
+  }
+  __syncwarp();
 }
 
 // Dynamic shared memory of the running lists, opted in above 48 KB.

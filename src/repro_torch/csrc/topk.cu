@@ -29,7 +29,8 @@
 // accumulate |x - y| by sum or max, starting from 0, and the accumulator
 // is the distance (zero-padded d columns add |0 - 0| = 0).  The finished
 // tile is staged in shared memory with the masks applied and merged into
-// the running top-k by the ballot insert that common.cuh describes.  Known
+// the running top-k by the ballot insert that common.cuh describes, in
+// shared memory up to k = 512 and in the output buffers above it.  Known
 // limit of this first version: at m = 2048 the 32-row strips give 64
 // blocks for 132 SMs, so the kNN-graph call leaves half the card idle, and
 // a 512-query brute batch (16 blocks) leaves most of it idle.
@@ -46,15 +47,25 @@ constexpr int THREADS = rt::SEL_THREADS;
 constexpr int WARPS = THREADS / 32;
 constexpr int PAD = 4;
 
-template <int FAM>
+// GLOBAL_LISTS (k > SEL_SMEM_MAX_K): the running lists are this strip's
+// rows of out_d / out_i, merged by the whole warp (warp_insert_sorted);
+// nothing is copied out at the end.
+template <int FAM, bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(THREADS)
     topk_kernel(const float* __restrict__ X, const float* __restrict__ Y,
                 const unsigned char* __restrict__ valid,
                 float* __restrict__ out_d, int* __restrict__ out_i, int m,
                 int n, int d, int k, int metric, int exclude_self) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* best_d = reinterpret_cast<float*>(smem_raw);  // [BM][k]
-  int* best_i = reinterpret_cast<int*>(best_d + BM * k);  // [BM][k]
+  float* best_d;  // [BM][k]
+  int* best_i;    // [BM][k]
+  if constexpr (GLOBAL_LISTS) {
+    best_d = out_d + (size_t)blockIdx.x * BM * k;
+    best_i = out_i + (size_t)blockIdx.x * BM * k;
+  } else {
+    best_d = reinterpret_cast<float*>(smem_raw);
+    best_i = reinterpret_cast<int*>(best_d + BM * k);
+  }
   __shared__ __align__(16) float Xs[BK][BM + PAD];
   __shared__ __align__(16) float Ys[BK][BN + PAD];
   __shared__ float Dt[BM][BN + 1];
@@ -68,9 +79,17 @@ __global__ void __launch_bounds__(THREADS)
   const int ty = tid / 16;  // rows ty*2, ty*2+1
   const int tx = tid % 16;  // cols tx*4 .. tx*4+3
 
-  for (int e = tid; e < BM * k; e += THREADS) {
-    best_d[e] = INFINITY;
-    best_i[e] = -1;
+  if constexpr (GLOBAL_LISTS) {
+    const size_t owned = (size_t)min(BM, m - row0) * k;  // rows inside X
+    for (size_t e = tid; e < owned; e += THREADS) {
+      best_d[e] = INFINITY;
+      best_i[e] = -1;
+    }
+  } else {
+    for (int e = tid; e < BM * k; e += THREADS) {
+      best_d[e] = INFINITY;
+      best_i[e] = -1;
+    }
   }
 
   for (int col0 = 0; col0 < n; col0 += BN) {
@@ -152,12 +171,21 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     for (int r = warp; r < BM; r += WARPS) {
       if (row0 + r >= m) continue;  // uniform across the warp
-      float* bd = best_d + r * k;
-      int* bi = best_i + r * k;
+      float* bd = best_d + (size_t)r * k;
+      int* bi = best_i + (size_t)r * k;
       const float thr = bd[k - 1];
       const unsigned lo = __ballot_sync(0xffffffffu, Dt[r][lane] < thr);
       const unsigned hi = __ballot_sync(0xffffffffu, Dt[r][lane + 32] < thr);
-      if (lane == 0) {
+      if constexpr (GLOBAL_LISTS) {
+        for (unsigned bits = lo; bits; bits &= bits - 1) {
+          const int b = __ffs(bits) - 1;
+          rt::warp_insert_sorted(bd, bi, k, Dt[r][b], col0 + b, lane);
+        }
+        for (unsigned bits = hi; bits; bits &= bits - 1) {
+          const int b = __ffs(bits) - 1;
+          rt::warp_insert_sorted(bd, bi, k, Dt[r][32 + b], col0 + 32 + b, lane);
+        }
+      } else if (lane == 0) {
         for (unsigned bits = lo; bits; bits &= bits - 1) {
           const int b = __ffs(bits) - 1;
           rt::insert_sorted(bd, bi, k, Dt[r][b], col0 + b);
@@ -172,26 +200,43 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
   }
 
-  for (int e = tid; e < BM * k; e += THREADS) {
-    const int gr = row0 + e / k;
-    if (gr < m) {
-      out_d[(size_t)row0 * k + e] = best_d[e];
-      out_i[(size_t)row0 * k + e] = best_i[e];
+  if constexpr (!GLOBAL_LISTS) {
+    for (int e = tid; e < BM * k; e += THREADS) {
+      const int gr = row0 + e / k;
+      if (gr < m) {
+        out_d[(size_t)row0 * k + e] = best_d[e];
+        out_i[(size_t)row0 * k + e] = best_i[e];
+      }
     }
   }
+}
+
+template <int FAM, bool GLOBAL_LISTS>
+int launch_lists(const float* X, const float* Y, const unsigned char* valid,
+                 float* out_d, int* out_i, int m, int n, int d, int k,
+                 int metric, int exclude_self, cudaStream_t stream) {
+  size_t smem = 0;  // the GLOBAL_LISTS instance keeps no lists here
+  if constexpr (!GLOBAL_LISTS) {
+    const cudaError_t err =
+        rt::reserve_best_smem(topk_kernel<FAM, false>, k, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((m + BM - 1) / BM);
+  topk_kernel<FAM, GLOBAL_LISTS><<<grid, THREADS, smem, stream>>>(
+      X, Y, valid, out_d, out_i, m, n, d, k, metric, exclude_self);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int FAM>
 int launch(const float* X, const float* Y, const unsigned char* valid,
            float* out_d, int* out_i, int m, int n, int d, int k, int metric,
            int exclude_self, cudaStream_t stream) {
-  size_t smem = 0;
-  const cudaError_t err = rt::reserve_best_smem(topk_kernel<FAM>, k, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM);
-  topk_kernel<FAM><<<grid, THREADS, smem, stream>>>(
-      X, Y, valid, out_d, out_i, m, n, d, k, metric, exclude_self);
-  return static_cast<int>(cudaGetLastError());
+  if (k <= rt::SEL_SMEM_MAX_K) {
+    return launch_lists<FAM, false>(X, Y, valid, out_d, out_i, m, n, d, k,
+                                    metric, exclude_self, stream);
+  }
+  return launch_lists<FAM, true>(X, Y, valid, out_d, out_i, m, n, d, k,
+                                 metric, exclude_self, stream);
 }
 
 }  // namespace
@@ -200,7 +245,7 @@ extern "C" int topk_f32(const float* X, const float* Y,
                         const unsigned char* valid, float* out_d, int* out_i,
                         int m, int n, int d, int k, int metric,
                         int exclude_self, void* stream) {
-  if (k < 1 || k > rt::SEL_MAX_K) return static_cast<int>(cudaErrorInvalidValue);
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (metric) {
     case rt::SQEUCLIDEAN:

@@ -29,7 +29,8 @@
 // words per row, d-major, so a thread reads its 2 rows as one int2 and its
 // 4 columns as one int4 and issues 8 __dp4a per word.  The finished tile
 // gets the epilogue and masks and is merged into the running top-k by the
-// ballot insert that common.cuh describes.  Known limit of this first
+// ballot insert that common.cuh describes, in shared memory up to k = 512
+// and in the output buffers above it.  Known limit of this first
 // version: a 512-query serve batch is 16 strips, so 16 of the 132 SMs
 // work; splitting the columns over more blocks (then merging their lists)
 // is later work.
@@ -64,6 +65,10 @@ __device__ __forceinline__ int load_word(const signed char* __restrict__ p,
   return w;
 }
 
+// GLOBAL_LISTS (k > SEL_SMEM_MAX_K): the running lists are this strip's
+// rows of out_d / out_i, merged by the whole warp (warp_insert_sorted);
+// nothing is copied out at the end.
+template <bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(THREADS)
     topk_int8_kernel(const signed char* __restrict__ xq,
                      const signed char* __restrict__ codes,
@@ -75,8 +80,15 @@ __global__ void __launch_bounds__(THREADS)
                      int m, int n, int d, int k, int euclidean,
                      int aligned) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* best_d = reinterpret_cast<float*>(smem_raw);  // [BM][k]
-  int* best_i = reinterpret_cast<int*>(best_d + BM * k);  // [BM][k]
+  float* best_d;  // [BM][k]
+  int* best_i;    // [BM][k]
+  if constexpr (GLOBAL_LISTS) {
+    best_d = out_d + (size_t)blockIdx.x * BM * k;
+    best_i = out_i + (size_t)blockIdx.x * BM * k;
+  } else {
+    best_d = reinterpret_cast<float*>(smem_raw);
+    best_i = reinterpret_cast<int*>(best_d + BM * k);
+  }
   __shared__ __align__(16) int Xw[BKW][BM + PAD];
   __shared__ __align__(16) int Yw[BKW][BN + PAD];
   __shared__ float Dt[BM][BN + 1];
@@ -90,9 +102,17 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = tid % 32;
   const int ty = tid / 16;  // rows ty*2, ty*2+1
   const int tx = tid % 16;  // cols tx*4 .. tx*4+3
-  for (int e = tid; e < BM * k; e += THREADS) {
-    best_d[e] = INFINITY;
-    best_i[e] = -1;
+  if constexpr (GLOBAL_LISTS) {
+    const size_t owned = (size_t)min(BM, m - row0) * k;  // rows inside xq
+    for (size_t e = tid; e < owned; e += THREADS) {
+      best_d[e] = INFINITY;
+      best_i[e] = -1;
+    }
+  } else {
+    for (int e = tid; e < BM * k; e += THREADS) {
+      best_d[e] = INFINITY;
+      best_i[e] = -1;
+    }
   }
   if (tid < BM) {
     const int gr = row0 + tid;
@@ -155,12 +175,21 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
     for (int r = warp; r < BM; r += WARPS) {
       if (row0 + r >= m) continue;  // uniform across the warp
-      float* bd = best_d + r * k;
-      int* bi = best_i + r * k;
+      float* bd = best_d + (size_t)r * k;
+      int* bi = best_i + (size_t)r * k;
       const float thr = bd[k - 1];
       const unsigned lo = __ballot_sync(0xffffffffu, Dt[r][lane] < thr);
       const unsigned hi = __ballot_sync(0xffffffffu, Dt[r][lane + 32] < thr);
-      if (lane == 0) {
+      if constexpr (GLOBAL_LISTS) {
+        for (unsigned bits = lo; bits; bits &= bits - 1) {
+          const int b = __ffs(bits) - 1;
+          rt::warp_insert_sorted(bd, bi, k, Dt[r][b], col0 + b, lane);
+        }
+        for (unsigned bits = hi; bits; bits &= bits - 1) {
+          const int b = __ffs(bits) - 1;
+          rt::warp_insert_sorted(bd, bi, k, Dt[r][32 + b], col0 + 32 + b, lane);
+        }
+      } else if (lane == 0) {
         for (unsigned bits = lo; bits; bits &= bits - 1) {
           const int b = __ffs(bits) - 1;
           rt::insert_sorted(bd, bi, k, Dt[r][b], col0 + b);
@@ -175,13 +204,33 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
   }
 
-  for (int e = tid; e < BM * k; e += THREADS) {
-    const int gr = row0 + e / k;
-    if (gr < m) {
-      out_d[(size_t)row0 * k + e] = best_d[e];
-      out_i[(size_t)row0 * k + e] = best_i[e];
+  if constexpr (!GLOBAL_LISTS) {
+    for (int e = tid; e < BM * k; e += THREADS) {
+      const int gr = row0 + e / k;
+      if (gr < m) {
+        out_d[(size_t)row0 * k + e] = best_d[e];
+        out_i[(size_t)row0 * k + e] = best_i[e];
+      }
     }
   }
+}
+
+template <bool GLOBAL_LISTS>
+int launch(const signed char* xq, const signed char* codes, const float* alpha,
+           const float* xn, const float* sqnorms, const unsigned char* valid,
+           float* out_d, int* out_i, int m, int n, int d, int k, int euclidean,
+           int aligned, cudaStream_t stream) {
+  size_t smem = 0;  // the GLOBAL_LISTS instance keeps no lists here
+  if constexpr (!GLOBAL_LISTS) {
+    const cudaError_t err =
+        rt::reserve_best_smem(topk_int8_kernel<false>, k, &smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((m + BM - 1) / BM);
+  topk_int8_kernel<GLOBAL_LISTS><<<grid, THREADS, smem, stream>>>(
+      xq, codes, alpha, xn, sqnorms, valid, out_d, out_i, m, n, d, k,
+      euclidean, aligned);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -191,13 +240,12 @@ extern "C" int topk_int8(const signed char* xq, const signed char* codes,
                          const float* sqnorms, const unsigned char* valid,
                          float* out_d, int* out_i, int m, int n, int d, int k,
                          int euclidean, int aligned, void* stream) {
-  if (k < 1 || k > rt::SEL_MAX_K) return static_cast<int>(cudaErrorInvalidValue);
-  size_t smem = 0;
-  const cudaError_t err = rt::reserve_best_smem(topk_int8_kernel, k, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM);
-  topk_int8_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      xq, codes, alpha, xn, sqnorms, valid, out_d, out_i, m, n, d, k,
-      euclidean, aligned);
-  return static_cast<int>(cudaGetLastError());
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= rt::SEL_SMEM_MAX_K) {
+    return launch<false>(xq, codes, alpha, xn, sqnorms, valid, out_d, out_i, m,
+                         n, d, k, euclidean, aligned, s);
+  }
+  return launch<true>(xq, codes, alpha, xn, sqnorms, valid, out_d, out_i, m, n,
+                      d, k, euclidean, aligned, s);
 }

@@ -17,12 +17,12 @@ from repro_torch.kernels.topk.ref import (
     topk_quant_ref,
     topk_ref,
 )
-from repro_torch.kernels.topk.topk import MAX_K, topk_cuda, topk_quant_cuda
+from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
 
 SUPPORTED = MATMUL_METRICS + CUBE_METRICS
 
 __all__ = ["topk", "topk_quant", "SUPPORTED", "MATMUL_METRICS", "CUBE_METRICS",
-           "QUANT_METRICS", "MAX_K"]
+           "QUANT_METRICS"]
 
 
 def topk(

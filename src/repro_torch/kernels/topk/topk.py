@@ -13,18 +13,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.pdist.pdist import METRIC_CODES, regime
 from repro_torch.kernels.topk.ref import QUANT_METRICS, quantize_queries
 
-#: largest k the kernels' shared-memory running top-k holds
-#: (``csrc/common.cuh:SEL_MAX_K``)
-MAX_K = 512
-
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check_k(k: int) -> int:
+    """Any k >= 1: up to 512 the running lists sit in shared memory, above
+    it in the output buffers (``csrc/common.cuh:SEL_SMEM_MAX_K``); slots past
+    the valid candidates hold (+inf, -1), k > n included."""
     k = int(k)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"topk kernel supports 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"topk kernel takes k >= 1, got {k}")
     return k
 
 
@@ -59,8 +58,9 @@ def topk_cuda(
     if d != d2:
         raise ValueError(f"dimension mismatch {tuple(X.shape)} vs {tuple(Y.shape)}")
     vmask = _valid_bytes(valid, n, X.device)
-    out_d = torch.full((m, k), float("inf"), dtype=torch.float32, device=X.device)
-    out_i = torch.full((m, k), -1, dtype=torch.int32, device=X.device)
+    # the kernel writes every entry: its lists start at (+inf, -1)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=X.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=X.device)
     if m == 0:
         return out_d, out_i
     fn = _build.function("topk_f32", _ARGTYPES)
@@ -104,8 +104,8 @@ def topk_quant_cuda(
     codes = codes.contiguous()
     sqnorms = sqnorms.float().contiguous()
     vmask = _valid_bytes(valid, n, Q.device)
-    out_d = torch.full((m, k), float("inf"), dtype=torch.float32, device=Q.device)
-    out_i = torch.full((m, k), -1, dtype=torch.int32, device=Q.device)
+    out_d = torch.empty((m, k), dtype=torch.float32, device=Q.device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=Q.device)
     if m == 0:
         return out_d, out_i
     aligned = d % 4 == 0 and xq.data_ptr() % 4 == 0 and codes.data_ptr() % 4 == 0

@@ -7,7 +7,10 @@ Tolerances: matmul-family and manhattan distances rtol 1e-5 / atol 5e-4
 (the JAX kernel tests' atol; manhattan sums d terms in another order);
 chebyshev bit-identical (a max of exact differences); int8 distances
 rtol / atol 1e-4 (``tests/test_quant.py:108-110``); ids identical except on
-near ties; minmax and minplus bit-identical; logminplus atol 1e-5.
+near ties; minmax and minplus bit-identical; logminplus atol 1e-5; the
+embedding bag atol 1e-6 (the kernel and its plain version round the same
+products and sums in the same order, so 0 is expected); recsys logits
+against the CPU rtol / atol 1e-5.
 """
 import math
 
@@ -21,6 +24,8 @@ from repro_torch.core import qmetric  # noqa: E402
 from repro_torch.core import quant as quant_lib  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bag.bag import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.pdist.pdist import pdist_cuda  # noqa: E402
 from repro_torch.kernels.pdist.ref import pdist_ref  # noqa: E402
 from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda  # noqa: E402
@@ -53,7 +58,8 @@ def _normal(shape, seed, dev):
 
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
-    for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel"):
+    for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
+                 "bag_kernel"):
         assert name in info["ptxas"]
 
 
@@ -139,16 +145,56 @@ def test_topk_kernel_exclude_self_and_valid(cuda):
     assert (i[:, -1] == -1).all() and torch.isinf(d[:, -1]).all()
 
 
-def test_topk_kernel_wide_k_and_its_limit(cuda):
-    """k up to 512 (the first pass of a quantized engine takes up to 256);
-    beyond that the wrapper refuses."""
+WIDE_K = [512, 513, 600, 2048]
+
+
+@pytest.mark.parametrize("k", WIDE_K + [3500])
+@pytest.mark.parametrize("metric", ["euclidean", "manhattan", "chebyshev"])
+def test_topk_kernel_wide_k(cuda, metric, k):
+    """Any k >= 1: up to 512 the running lists sit in shared memory, above
+    it in the output buffers; k = 3500 exceeds n, whose slots past n hold
+    (+inf, -1)."""
     X, Y = _normal((40, 16), 8, cuda), _normal((3000, 16), 9, cuda)
-    for k in (200, 512):
-        od, oi = topk_cuda(X, Y, k=k, metric="euclidean")
-        rd, ri = topk_ref(X, Y, k=k, metric="euclidean")
+    valid = torch.as_tensor(np.arange(3000) % 11 != 4, device=cuda)
+    counter = "topk/f32" if metric == "euclidean" else "topk/cube"
+    before = _build.launches()[counter]
+    od, oi = topk_cuda(X, Y, k=k, metric=metric, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()[counter] == before + 1
+    rd, ri = topk_ref(X, Y, k=k, metric=metric, valid=valid)
+    if metric == "chebyshev":
+        assert torch.equal(od, rd) and torch.equal(oi, ri)
+    else:
         assert_same_ids(oi, od, ri, rd)
-    with pytest.raises(ValueError, match="k <= 512"):
-        topk_cuda(X, Y, k=513)
+    live = int(valid.sum())
+    if k > live:
+        assert torch.isinf(od[:, live:]).all() and (oi[:, live:] == -1).all()
+
+
+@pytest.mark.parametrize("k", WIDE_K + [2500])
+def test_topk_int8_kernel_wide_k(cuda, k):
+    store, Q = _store(2000, 20, 31, cuda)
+    codes, scales, sqn = store.device_view()
+    od, oi = topk_quant_cuda(Q, codes, scales, sqn, k=k, metric="euclidean")
+    rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k, metric="euclidean")
+    assert_same_ids(oi, od, ri, rd, rtol=1e-4, atol=1e-4)
+    if k > 2000:
+        assert torch.isinf(od[:, 2000:]).all() and (oi[:, 2000:] == -1).all()
+
+
+def test_topk_kernel_k_below_one_raises_and_brute_takes_wide_k(cuda):
+    X, Y = _normal((4, 8), 1, cuda), _normal((50, 8), 2, cuda)
+    with pytest.raises(ValueError, match="k >= 1"):
+        topk_cuda(X, Y, k=0)
+    # brute_force(X, Q, k=600) answers on the card as in JAX
+    from repro_torch.core.baselines import brute_force
+
+    C, Qs = _normal((5000, 32), 3, cuda), _normal((64, 32), 4, cuda)
+    res = brute_force(C, Qs, k=600)
+    torch.cuda.synchronize()
+    rd, ri = topk_ref(Qs, C, k=600, metric="euclidean")
+    assert res.idx.shape == (64, 600)
+    assert_same_ids(res.idx, res.dist, ri, rd)
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1), (33, 257, 20, 5), (130, 129, 7, 17),
@@ -273,7 +319,7 @@ def test_small_index_build_launches_every_kernel(cuda):
     counts = _build.launches()
     assert counts == {"topk/f32": 1, "topk/cube": 0, "topk/int8": 0,
                       "pdist/matmul": 1, "pdist/cube": 0, "qpath/minplus": 0,
-                      "qpath/minmax": 0, "qpath/logminplus": 4}
+                      "qpath/minmax": 0, "qpath/logminplus": 4, "bag": 0}
     res = index.search(X[:80], k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
@@ -307,3 +353,73 @@ def test_quantized_brute_and_manhattan_index_on_card(cuda):
     res = index.search(Q, k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
+
+
+@pytest.mark.parametrize("D", [1, 10, 16, 24])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_kernel_matches_plain(cuda, D, combine, weighted):
+    rng = np.random.default_rng([D, weighted])
+    V, B, S = 5000, 700, 39
+    table = torch.as_tensor(rng.normal(size=(V, D)).astype(np.float32), device=cuda)
+    ids_np = rng.integers(0, V, size=(B, S)).astype(np.int32)
+    ids_np[rng.random((B, S)) < 0.1] = -1  # padding, some rows partly
+    ids_np[5] = -3  # an all-padding row
+    ids = torch.as_tensor(ids_np, device=cuda)
+    w = (torch.as_tensor(rng.uniform(0.5, 1.5, size=(B, S)).astype(np.float32),
+                         device=cuda) if weighted else None)
+    before = _build.launches()["bag"]
+    out = embedding_bag_cuda(table, ids, w, combine=combine)
+    torch.cuda.synchronize()
+    assert _build.launches()["bag"] == before + 1
+    ref = embedding_bag_ref(table, ids, w, combine=combine)
+    assert out.shape == (B, D) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-6)
+    assert (out[5] == 0).all()
+    # int64 ids take the same path
+    assert torch.equal(embedding_bag_cuda(table, ids.long(), w, combine=combine), out)
+
+
+def test_bag_kernel_edges(cuda):
+    table = _normal((10, 3), 5, cuda)
+    empty = embedding_bag_cuda(table, torch.zeros((0, 4), dtype=torch.int32, device=cuda))
+    assert empty.shape == (0, 3)
+    one = torch.tensor([[2, -1, 7]], dtype=torch.int32, device=cuda)
+    np.testing.assert_allclose(embedding_bag_cuda(table, one).cpu().numpy(),
+                               (table[2] + table[7])[None].cpu().numpy(), atol=1e-6)
+    table[0] = math.inf  # padding still forms 0 * row 0
+    assert torch.isnan(embedding_bag_cuda(table, one)).all()
+    with pytest.raises(ValueError, match="f32 table"):
+        embedding_bag_cuda(table.to(torch.bfloat16), one)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embedding_bag_cuda(table, one.cpu())
+
+
+@pytest.mark.parametrize("arch", ["fm", "deepfm", "xdeepfm", "autoint"])
+def test_recsys_serving_on_card_matches_cpu(cuda, arch):
+    """The reduced config served on the card (the bag kernel for the
+    first-order term and the user embedding) against the same weights on
+    the CPU (the plain version)."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.models import params, recsys
+    from repro_torch.train.train_step import make_retrieval_step, make_serve_step
+
+    cfg = configs.get_reduced(arch)
+    model = recsys.RecsysModel.build(cfg, device=cuda)
+    cpu = recsys.RecsysModel(cfg, params.map_decls(
+        lambda path, _: model.get_parameter(path).detach().cpu(), recsys.recsys_decls(cfg)))
+    ids = recsys_batch(0, 256, cfg.vocabs, seed=4)["ids"]
+    _build.reset_launches()
+    probs = make_serve_step(cfg, "recsys")(model, {"ids": torch.as_tensor(ids, device=cuda)})
+    torch.cuda.synchronize()
+    assert _build.launches()["bag"] == 1
+    ref = make_serve_step(cfg, "recsys")(cpu, {"ids": torch.as_tensor(ids)})
+    np.testing.assert_allclose(probs.cpu().numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
+    cand = _normal((3000, cfg.embed_dim), 6, cuda)
+    s, i = make_retrieval_step(cfg, k=50)(
+        model, {"ids": torch.as_tensor(ids[:3], device=cuda), "candidates": cand})
+    rs, ri = make_retrieval_step(cfg, k=50)(
+        cpu, {"ids": torch.as_tensor(ids[:3]), "candidates": cand.cpu()})
+    np.testing.assert_allclose(s.cpu().numpy(), rs.numpy(), rtol=1e-5, atol=1e-5)
+    assert (i.cpu() == ri).float().mean() >= 0.98  # near ties may swap
