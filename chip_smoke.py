@@ -11,16 +11,17 @@ Phases, in order; any failure exits non-zero:
 2. Every kernel against its plain PyTorch version at the main path's
    shapes: pdist 2048x2048x784 (euclidean, manhattan, chebyshev); topk for
    the kNN graph (2048x2048x784, k=16, self excluded; euclidean, manhattan,
-   chebyshev) and the ground truth (10000x60000x784, k=10; euclidean,
-   manhattan); the int8 topk for one quantized-brute serve batch
-   (512x60000x784, K=64) and the whole query set (10000x60000x784); qpath
-   2048^3 in all three modes; the topk kernels at k = 600 (past the
-   shared-memory lists) on one brute batch (512x60000x784: euclidean,
-   manhattan, int8); the embedding bag at DeepFM's shapes (the (V, 1)
-   first-order table at serve_bulk and serve_p99, the (V, 10) table for
-   the user embeddings of retrieval_cand and the infinity retrieval, and
-   D = 1 / 10 sum / mean rows with padding ids and weights at the
-   serve_bulk batch).  Each prints its error, id agreement, the
+   chebyshev), the ground truth (10000x60000x784, k=10; euclidean,
+   manhattan) and one brute f32 serve batch (512x60000x784, k=10); the
+   int8 topk for one quantized-brute serve batch (512x60000x784, K=64)
+   and the whole query set (10000x60000x784); qpath 2048^3 in all three
+   modes; the topk kernels at k = 600 (past the shared-memory lists) on
+   one brute batch (512x60000x784: euclidean, manhattan, int8); the
+   embedding bag at DeepFM's shapes (the (V, 1) first-order table at
+   serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
+   retrieval_cand and the infinity retrieval, D = 1 / 10 sum / mean rows
+   with padding ids and weights at the serve_bulk batch, and the D = 10
+   table as bf16 there).  Each prints its error, id agreement, the
    kernel's time (CUDA events after warm-up), the plain version's time, the
    time of one PyTorch call that computes the same function where there is
    one, and the bound (the least time the card could take).
@@ -147,6 +148,7 @@ NO_WIDE_K = "none: no engine asks for k > 512 on the main path"
 BAG_ATOL = 1e-6
 NO_BAG_EXTRAS = "none: served ids carry no padding and no weights"
 NO_BAG_D10_BULK = "none: no window pools embedding rows at the serve_bulk batch"
+NO_BAG_BF16 = "none: no served config declares a bf16 table"
 # recsys logits (or retrieval scores) of the kernel path against the plain
 # bag's: the same weights and ids, bit-identical bags, so 0 is expected;
 # the stated tolerance is the CPU parity tests'
@@ -264,24 +266,32 @@ def ids_agree(ids, ref_ids, ref_d, k: int, rtol=MATMUL_RTOL, atol=MATMUL_ATOL):
 # ---------------------------------------------------------------------------
 
 def _ptxas_summary(report: str) -> dict:
-    out, name = {}, None
+    """Registers, static shared memory and spill bytes (stores + loads) of
+    every kernel instance in nvcc's ``-Xptxas -v`` report."""
+    out, name, spill = {}, None, 0
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
-                          "qpath_kernel", "bag_kernel"):
+                          "merge_kernel", "sqnorm_kernel", "qpath_kernel",
+                          "bag_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
                     args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
                     name = short + (f"<{','.join(args)}>" if args else "")
                     break
             continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
         m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?(.*)", line)
         if m and name:
             smem = re.search(r"(\d+) bytes smem", line)
             out[name] = {"registers": int(m.group(1)),
-                         "smem_bytes": int(smem.group(1)) if smem else 0}
+                         "smem_bytes": int(smem.group(1)) if smem else 0,
+                         "spill_bytes": spill}
             name = None
     return out
 
@@ -377,6 +387,7 @@ def phase_kernels(seed: int) -> list[dict]:
     for case, path, metric, Xq, Y, k, excl in (
         ("kNN graph", "full-width build", "euclidean", S, S, 16, True),
         ("ground truth", "full-width ground truth", "euclidean", queries, corpus, 10, False),
+        ("brute batch", "brute f32 serve", "euclidean", slice_q, corpus, 10, False),
         ("kNN graph", "manhattan build", "manhattan", S, S, 16, True),
         ("ground truth", "manhattan ground truth", "manhattan", queries, corpus, 10, False),
         ("kNN graph", None, "chebyshev", S, S, 16, True),
@@ -515,16 +526,16 @@ def phase_kernels(seed: int) -> list[dict]:
     return rows
 
 
-def _bag_bound(ids, D: int, weighted: bool) -> dict:
+def _bag_bound(ids, D: int, weighted: bool, elem: int = 4) -> dict:
     """Bytes the bag must move: each distinct 32-byte sector of the table
-    rows its ids name (a D * 4-byte row spans whole sectors; a row several
+    rows its ids name (a D * elem-byte row spans whole sectors; a row several
     lookups share is read once), the ids (and weights) once, the (B, D)
     output once.  ``gathered_bytes`` counts the sectors per lookup instead
     (no reuse)."""
     import torch
 
     B, S = ids.shape
-    row = 4 * D
+    row = elem * D
     start = ids.clamp_min(0).long().reshape(-1) * row
     first, last = start // 32, (start + row - 1) // 32
     span = int((last - first).max()) + 1
@@ -560,6 +571,8 @@ def _bag_rows(seed: int) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(seed)
     tables = {D: torch.randn((V, D), generator=g, device=dev).mul_(0.01)
               for D in (1, cfg.embed_dim)}
+    # the embedding table as bf16, read by the kernel in its own dtype
+    tables["bf16"] = tables[cfg.embed_dim].to(torch.bfloat16)
     offsets = recsys_lib.field_offsets(cfg, dev)
 
     def flat(step: int, batch: int):
@@ -583,14 +596,17 @@ def _bag_rows(seed: int) -> list[dict]:
         ("user embeddings, infinity retrieval", E, flat(1, INF_USERS), None, "sum",
          "infinity retrieval"),
         (f"pooled embeddings at the serve_bulk batch {B_bulk}", E, bulk, None, "sum", None),
+        (f"pooled embeddings, bf16 table, at the serve_bulk batch {B_bulk}", "bf16", bulk,
+         None, "sum", None),
         ("10 % padding ids, weights, sum", 1, padded, w, "sum", None),
         ("10 % padding ids, weights, sum", E, padded, w, "sum", None),
         ("10 % padding ids, weights, mean", 1, padded, w, "mean", None),
         ("10 % padding ids, weights, mean", E, padded, w, "mean", None),
     )
     rows = []
-    for case, D, ids, wts, combine, path in cases:
-        table = tables[D]
+    for case, key, ids, wts, combine, path in cases:
+        table = tables[key]
+        D = table.shape[1]
         B, S = ids.shape
         out = embedding_bag_cuda(table, ids, wts, combine=combine)
         ref = embedding_bag_ref(table, ids, wts, combine=combine)
@@ -598,7 +614,8 @@ def _bag_rows(seed: int) -> list[dict]:
         if not (bool(torch.isfinite(out).all()) and err <= BAG_ATOL):
             fail(f"bag {case} D={D} disagrees with its plain version (max err {err})")
         library_ms = None
-        if combine == "sum":
+        # F.embedding_bag on a bf16 table sums in bf16: not this function
+        if combine == "sum" and table.dtype == torch.float32:
             # the same function by PyTorch's own bag: the padding ids clamped
             # and their weights zeroed
             safe = ids.clamp_min(0).long()
@@ -613,6 +630,7 @@ def _bag_rows(seed: int) -> list[dict]:
         rows.append({
             "name": "bag", "case": f"{case} {B}x{S} D={D} {combine}",
             "path": path, "idle": None if path else (
+                NO_BAG_BF16 if key == "bf16" else
                 NO_BAG_D10_BULK if wts is None else NO_BAG_EXTRAS),
             "counter": "bag", "source": "src/repro_torch/csrc/bag.cu",
             "replaces": "src/repro/kernels/bag/bag.py:30",
@@ -621,7 +639,7 @@ def _bag_rows(seed: int) -> list[dict]:
             "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, wts, combine=combine),
                                 reps),
             "library_ms": library_ms,
-            "bound": _bag_bound(ids, D, wts is not None),
+            "bound": _bag_bound(ids, D, wts is not None, table.element_size()),
         })
         log("kernel " + json.dumps(rows[-1]))
     del tables
@@ -1204,6 +1222,8 @@ def main(argv=None) -> int:
                "manhattan build": manhattan["launches"]["build"],
                "manhattan ground truth": manhattan["launches"]["ground_truth"]}
     windows.update({f"bench-config build q={p['q']}": p["launches"] for p in parity})
+    windows["brute f32 serve"] = next(
+        r["launches"] for r in quant if r["engine"] == "brute")
     windows["quantized brute serve"] = next(
         r["launches"] for r in quant if r["engine"] == "brute+quant")
     windows.update({f"{r['arch']} {r['shape']}" if r["shape"] != "infinity retrieval"

@@ -56,47 +56,60 @@ __device__ __forceinline__ float accumulate(float acc, float x, float y) {
 // ---------------------------------------------------------------------------
 // streaming top-k selection (topk.cu, topk_int8.cu)
 //
-// A block owns a strip of SEL_ROWS query rows and streams the corpus in
-// tiles of SEL_COLS columns.  The running top-k of each row lives in
-// shared memory, sorted ascending (SEL_ROWS x k entries).  A finished tile
-// (distances with every mask applied, +inf where masked) is merged one row
-// per warp: a ballot finds the tile's entries strictly below the row's
-// current k-th distance — for a converged row usually none, so the tile
-// costs two shared loads per lane — and lane 0 inserts those in ascending
-// column order (insert_sorted), each only if still strictly below the
-// k-th.  Inserting after equal entries and visiting columns in ascending
-// order reproduces lax.top_k's lowest-index tie rule; +inf is never
-// inserted, so slots past the valid candidates keep (+inf, -1).
+// A running top-k list is sorted ascending by (distance, column): an entry
+// goes after every entry with a smaller distance, or an equal distance and
+// a lower column.  Comparing pairs (BY_COLUMN) makes the lists independent
+// of the order in which candidates arrive, so lax.top_k's lowest-index tie
+// rule holds however a scan visits its columns, and lists of disjoint
+// column ranges merge by the same order (topk.cu's split merge).  +inf is
+// never inserted, so slots past the valid candidates keep (+inf, -1); a
+// finite candidate sorts before such a slot.
 //
-// Each kernel writes that merge out in its own body: as a shared
-// __forceinline__ function taking the staged tile by pointer, ptxas spilled
-// in topk.cu's matmul instance (48 registers, 28 bytes of spill loads) and
-// chip_smoke.py's kNN-graph and ground-truth rows read 2.93 and 118.8 ms
-// on an H100 against 2.34 and 104.7 ms with the merge in the kernel body
-// (59 registers, no spill).
+// topk_int8.cu's block owns a strip of SEL_ROWS query rows and streams the
+// corpus in tiles of SEL_COLS columns; a finished tile (distances with
+// every mask applied) is merged one row per warp: a ballot finds the
+// tile's entries below the row's current k-th distance, and lane 0
+// inserts those (insert_sorted).  The merge is written out in the kernel
+// body: as a shared __forceinline__ function taking the staged tile by
+// pointer, ptxas spilled in the f32 kernel of that same design (48
+// registers, 28 bytes of spill loads) and chip_smoke.py's kNN-graph and
+// ground-truth rows read 2.93 and 118.8 ms on an H100 against 2.34 and
+// 104.7 ms with the merge in the body (59 registers, no spill; NVIDIA H100
+// 80GB HBM3, 700 W).
 // ---------------------------------------------------------------------------
 
 constexpr int SEL_ROWS = 32;
 constexpr int SEL_COLS = 64;
 constexpr int SEL_THREADS = 256;
-// Largest k whose running lists sit in shared memory: SEL_ROWS * k * 8
-// bytes of dynamic shared memory (128 KB at k = 512), opted in with
-// cudaFuncSetAttribute.  Above it the lists live in global memory, in the
-// (m, k) output buffers themselves (the kernels' GLOBAL_LISTS instance):
-// 32 rows of 8-byte entries do not fit in 227 KB past k ~ 850, and fewer
-// rows per block would change the strip and tile that every instance
-// shares.  A global list is merged by the whole warp (warp_insert_sorted):
-// one lane shifting k entries through L1/L2 one at a time, as the shared
-// lists are, made a 512 x 60000 x 784 scan at k = 600 take 485-619 ms on
-// an H100 (NVIDIA H100 80GB HBM3, 700 W) against 6.3 ms for the plain
-// version.
+// Largest k whose running lists sit in shared memory: rows * k * 8 bytes
+// of dynamic shared memory (128 KB for 32 rows at k = 512), opted in with
+// cudaFuncSetAttribute.  Above it the lists live in global memory (the
+// kernels' GLOBAL_LISTS instance) and are merged by the whole warp
+// (warp_insert_sorted): one lane shifting k entries through L1/L2 one at a
+// time, as the shared lists are, made a 512 x 60000 x 784 scan at k = 600
+// take 485-619 ms on an H100 (NVIDIA H100 80GB HBM3, 700 W) against 6.3 ms
+// for the plain version.
 constexpr int SEL_SMEM_MAX_K = 512;
 
+// (v, c) before (w, e) in a list's order.  BY_COLUMN = false compares the
+// distances alone, which is the same order where a scan offers its
+// columns in ascending order (topk_int8.cu: an equal distance then always
+// comes from a higher column) and keeps that kernel's code as it was.
+template <bool BY_COLUMN>
+__device__ __forceinline__ bool before(float v, int c, float w, int e) {
+  if constexpr (BY_COLUMN) {
+    return v < w || (v == w && c < e);
+  } else {
+    return v < w;
+  }
+}
+
+template <bool BY_COLUMN = false>
 __device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
                                               float v, int col) {
-  if (!(v < bd[k - 1])) return;
+  if (!before<BY_COLUMN>(v, col, bd[k - 1], bi[k - 1])) return;
   int p = k - 1;
-  while (p > 0 && bd[p - 1] > v) {
+  while (p > 0 && before<BY_COLUMN>(v, col, bd[p - 1], bi[p - 1])) {
     bd[p] = bd[p - 1];
     bi[p] = bi[p - 1];
     --p;
@@ -107,16 +120,23 @@ __device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
 
 // insert_sorted for a list in global memory, by all 32 lanes of a warp
 // (called with warp-uniform arguments): the position is the count of
-// entries <= v (the list ascends, so after every equal entry), summed
-// over the lanes' strided slices; the tail then moves up one slot 32
-// entries at a time, top chunk first, each chunk read before it is
-// written.
+// entries before (v, col), summed over the lanes' strided slices; the tail
+// then moves up one slot 32 entries at a time, top chunk first, each chunk
+// read before it is written.
+template <bool BY_COLUMN = false>
 __device__ __forceinline__ void warp_insert_sorted(float* bd, int* bi, int k,
                                                    float v, int col,
                                                    int lane) {
-  if (!(v < bd[k - 1])) return;
+  if (!before<BY_COLUMN>(v, col, bd[k - 1], bi[k - 1])) return;
   int p = 0;
-  for (int e = lane; e < k; e += 32) p += bd[e] <= v ? 1 : 0;
+  for (int e = lane; e < k; e += 32) {
+    if constexpr (BY_COLUMN) {
+      const float w = bd[e];
+      if (w < v || (w == v && bi[e] < col)) ++p;
+    } else {
+      p += bd[e] <= v ? 1 : 0;
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
   for (int top = k - 1; top > p; top -= 32) {

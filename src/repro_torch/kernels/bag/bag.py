@@ -8,10 +8,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bag.ref import check_args
+from repro_torch.kernels.bag.ref import TABLE_DTYPES, check_args
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+             + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def embedding_bag_cuda(
@@ -21,9 +21,10 @@ def embedding_bag_cuda(
     *,
     combine: str = "sum",
 ) -> torch.Tensor:
-    """table (V, D) f32, ids (B, S), weights (B, S) or None, all CUDA ->
-    (B, D) f32, by the CUDA kernel.  Ids are taken as int32 (a copy when
-    they are not)."""
+    """table (V, D) f32, bf16 or f16, ids (B, S), weights (B, S) or None,
+    all CUDA -> (B, D) f32, by the CUDA kernel.  The table is read in its
+    own dtype (no f32 copy); ids are taken as int32 (a copy when they are
+    not)."""
     check_args(table, ids, weights, combine)
     if not (table.is_cuda and ids.is_cuda and (weights is None or weights.is_cuda)):
         raise ValueError("embedding_bag_cuda takes CUDA tensors")
@@ -37,7 +38,8 @@ def embedding_bag_cuda(
     if B == 0 or D == 0:
         return out
     fn = _build.function("bag_f32", _ARGTYPES)
-    err = fn(table.data_ptr(), ids.data_ptr(),
+    # the kernel's dtype code is the position in TABLE_DTYPES (bag.cu:TableDtype)
+    err = fn(table.data_ptr(), TABLE_DTYPES.index(table.dtype), ids.data_ptr(),
              None if weights is None else weights.data_ptr(), out.data_ptr(),
              B, S, D, int(combine == "mean"), _build.stream_handle(table.device))
     _build.check(err, "bag_f32")

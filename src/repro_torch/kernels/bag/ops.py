@@ -17,8 +17,9 @@ def embedding_bag(
     *,
     combine: str = "sum",
 ) -> torch.Tensor:
-    """table (V, D) f32, ids (B, S) -> (B, D): the weighted sum (or mean) of
-    the rows each bag names; ids below 0 are padding (weight 0)."""
+    """table (V, D) f32, bf16 or f16, ids (B, S) -> (B, D) f32: the weighted
+    sum (or mean) of the rows each bag names; ids below 0 are padding
+    (weight 0)."""
     if table.is_cuda:
         return embedding_bag_cuda(table, ids, weights, combine=combine)
     return embedding_bag_ref(table, ids, weights, combine=combine)

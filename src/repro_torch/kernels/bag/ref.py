@@ -1,6 +1,9 @@
 """Plain PyTorch version of the embedding-bag kernel (``csrc/bag.cu``).
 
-table (V, D) f32, ids (B, S) int, optional weights (B, S) -> (B, D) f32.
+table (V, D) f32, bf16 or f16, ids (B, S) int, optional weights (B, S) ->
+(B, D) f32; each gathered slice of a bf16 or f16 table is cast to f32
+before its product, as JAX's kernel casts each row
+(``repro/kernels/bag/bag.py:38``).
 Ids below 0 are padding: they read row 0 with weight 0 (the product is
 still formed, as in ``repro/kernels/bag``).  ``combine="mean"`` divides by
 ``max(sum_s w, 1e-9)``, so an all-padding row gives 0.  The sum runs in
@@ -15,17 +18,20 @@ from typing import Optional
 import torch
 
 COMBINES = ("sum", "mean")
+#: the table dtypes both versions take, in the order of the kernel's codes
+#: (``csrc/bag.cu:TableDtype``)
+TABLE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def check_args(table: torch.Tensor, ids: torch.Tensor,
                weights: Optional[torch.Tensor], combine: str) -> None:
-    """What both versions take: an f32 (V, D) table (other dtypes raise —
-    the JAX kernel casts them in-kernel, see ROADMAP Queue 3), (B, S) ids,
-    weights of the ids' shape, ``sum`` or ``mean``."""
+    """What both versions take: an f32, bf16 or f16 (V, D) table, (B, S)
+    ids, weights of the ids' shape, ``sum`` or ``mean``."""
     if combine not in COMBINES:
         raise ValueError(f"combine must be one of {COMBINES}, got {combine!r}")
-    if table.dtype != torch.float32:
-        raise ValueError(f"embedding_bag takes an f32 table, got {table.dtype}")
+    if table.dtype not in TABLE_DTYPES:
+        raise ValueError(f"embedding_bag takes an f32, bf16 or f16 table, "
+                         f"got {table.dtype}")
     if table.dim() != 2 or ids.dim() != 2:
         raise ValueError(f"table (V, D) and ids (B, S) expected, got "
                          f"{tuple(table.shape)} and {tuple(ids.shape)}")
@@ -56,7 +62,7 @@ def embedding_bag_ref(
     wsum = torch.zeros((B, 1), dtype=torch.float32, device=table.device)
     for s in range(S):
         ws = w[:, s:s + 1]
-        out = out + ws * table.index_select(0, safe[:, s])
+        out = out + ws * table.index_select(0, safe[:, s]).float()
         wsum = wsum + ws
     if combine == "mean":
         out = out / wsum.clamp_min(1e-9)

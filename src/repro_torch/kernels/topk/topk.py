@@ -5,6 +5,7 @@ corpus codes (replaces ``:_int8_kernel``)."""
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -13,13 +14,67 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.pdist.pdist import METRIC_CODES, regime
 from repro_torch.kernels.topk.ref import QUANT_METRICS, quantize_queries
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_RESIDENT_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+#: the f32 scan's geometry (must match ``csrc/topk.cu``): columns per tile,
+#: the k above which a strip is 32 rows instead of 64, the most column
+#: splits (one list head per lane of the merge's warp)
+TILE_COLS = 128
+WIDE_ROWS_K = 64
+MAX_SPLITS = 32
+#: the most bytes the splits' (m, S, k) lists may take on the card
+SCRATCH_BYTES = 256 << 20
+#: (metric code, k) -> blocks of the scan one SM holds
+_RESIDENT: dict[tuple[int, int], int] = {}
+
+
+def rows_per_block(k: int) -> int:
+    """Query rows per block of the f32 scan: 64, or 32 where the running
+    lists take the shared memory (k > ``WIDE_ROWS_K``)."""
+    return 64 if k <= WIDE_ROWS_K else 32
+
+
+def split_plan(m: int, n: int, k: int, slots: int = 2 * 132) -> list[tuple[int, int]]:
+    """The column ranges of the f32 scan's splits: contiguous, ascending,
+    whole tiles except the last, covering [0, n) once.  Each (row strip,
+    split) is one block; ``slots`` is how many blocks the card holds at
+    once.  The count S minimises the tiles the busiest slot scans (waves x
+    tiles per split), the fewest splits among equals, with at most
+    ``MAX_SPLITS`` and lists of at most ``SCRATCH_BYTES``.  S = 1 for n up
+    to one tile."""
+    strips = -(-max(m, 1) // rows_per_block(k))
+    tiles = max(1, -(-n // TILE_COLS))
+    most = min(MAX_SPLITS, tiles, max(1, SCRATCH_BYTES // (8 * max(m, 1) * k)))
+    best = (math.inf, 1)
+    for splits in range(1, most + 1):
+        per = -(-tiles // splits)
+        if -(-tiles // per) != splits:  # this count would leave a split empty
+            continue
+        cost = -(-strips * splits // max(1, slots)) * per
+        if cost < best[0]:
+            best = (cost, per)
+    width = best[1] * TILE_COLS
+    return [(a, min(a + width, n)) for a in range(0, n, width)] or [(0, 0)]
+
+
+def _slots(metric: str, k: int, device) -> int:
+    """Blocks of the scan the card holds at once for this metric and k."""
+    key = (METRIC_CODES[metric], k)
+    if key not in _RESIDENT:
+        blocks = ctypes.c_int(0)
+        fn = _build.function("topk_f32_blocks_per_sm", _RESIDENT_ARGTYPES)
+        _build.check(fn(*key, ctypes.byref(blocks)), "topk_f32_blocks_per_sm")
+        _RESIDENT[key] = max(1, blocks.value)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _RESIDENT[key] * sms
 
 
 def _check_k(k: int) -> int:
     """Any k >= 1: up to 512 the running lists sit in shared memory, above
-    it in the output buffers (``csrc/common.cuh:SEL_SMEM_MAX_K``); slots past
+    it in global memory (``csrc/common.cuh:SEL_SMEM_MAX_K``); slots past
     the valid candidates hold (+inf, -1), k > n included."""
     k = int(k)
     if k < 1:
@@ -45,7 +100,10 @@ def topk_cuda(
     valid: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest rows of Y (n, d) for every row of X (m, d), CUDA f32 ->
-    (dists (m, k) f32 ascending, idxs (m, k) int32), by the CUDA kernel."""
+    (dists (m, k) f32 ascending, idxs (m, k) int32), by the CUDA kernel:
+    the squared norms (matmul family), the scan over ``split_plan``'s
+    column ranges and, with more than one, the merge of their lists, on the
+    current stream — one counted launch."""
     if metric not in METRIC_CODES:
         raise ValueError(f"topk kernel does not support metric {metric!r}")
     k = _check_k(k)
@@ -63,11 +121,21 @@ def topk_cuda(
     out_i = torch.empty((m, k), dtype=torch.int32, device=X.device)
     if m == 0:
         return out_d, out_i
+    plan = split_plan(m, n, k, _slots(metric, k, X.device))
+    splits, width = len(plan), max(1, plan[0][1] - plan[0][0])
+    norms = (torch.empty(m + n, dtype=torch.float32, device=X.device)
+             if regime(metric) == "matmul" else None)
+    part_d = part_i = None
+    if splits > 1:
+        part_d = torch.empty((m, splits, k), dtype=torch.float32, device=X.device)
+        part_i = torch.empty((m, splits, k), dtype=torch.int32, device=X.device)
+    aligned = d % 4 == 0 and X.data_ptr() % 16 == 0 and Y.data_ptr() % 16 == 0
+    ptr = (lambda t: None if t is None else t.data_ptr())
     fn = _build.function("topk_f32", _ARGTYPES)
-    err = fn(X.data_ptr(), Y.data_ptr(),
-             None if vmask is None else vmask.data_ptr(),
-             out_d.data_ptr(), out_i.data_ptr(), m, n, d, k, METRIC_CODES[metric],
-             int(bool(exclude_self)), _build.stream_handle(X.device))
+    err = fn(X.data_ptr(), Y.data_ptr(), ptr(vmask), out_d.data_ptr(),
+             out_i.data_ptr(), ptr(norms), ptr(part_d), ptr(part_i), m, n, d, k,
+             METRIC_CODES[metric], int(bool(exclude_self)), splits, width,
+             int(aligned), _build.stream_handle(X.device))
     _build.check(err, "topk_f32")
     _build.note_launch("topk/f32" if regime(metric) == "matmul" else "topk/cube")
     return out_d, out_i

@@ -5,6 +5,9 @@ against the JAX package's Pallas kernel (interpret mode, as
 Tolerance: atol 1e-5 on every output.  The three versions sum the same
 f32 products in other orders (the port and the Pallas grid in ascending s,
 the jnp oracle as an einsum), so they agree to a few ulps, not bit for bit.
+A bf16 or f16 table is cast to f32 row by row (exactly) in the port and the
+Pallas kernel, so the port's result on it equals its result on the f32 copy
+of the table bit for bit.
 """
 import numpy as np
 import pytest
@@ -58,6 +61,34 @@ def test_bag_matches_pallas_and_oracle(D, combine, weighted):
     assert (port[7] == 0.0).all()
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_takes_half_tables_as_jax_does(dtype, combine, weighted):
+    """A bf16 / f16 table gives JAX's f32 result: the Pallas kernel casts
+    each gathered row to f32 in-kernel.  The jnp oracle sums in the table's
+    own dtype, so it is held on the f32 cast of the same table (its f32
+    arithmetic); the port is also exactly its own result on that cast."""
+    table, ids, w = _inputs(300, 10, 10, 6, seed=11, weighted=weighted)
+    half = torch.as_tensor(table).to(getattr(torch, dtype))
+    wide = half.float().numpy()  # the table's values, exactly, in f32
+    tw = None if w is None else torch.as_tensor(w)
+    jw = None if w is None else jnp.asarray(w)
+    port = ops.embedding_bag(half, torch.as_tensor(ids), tw, combine=combine)
+    assert port.dtype == torch.float32 and port.shape == (10, 10)
+    jhalf = jnp.asarray(wide).astype(getattr(jnp, dtype))
+    pallas = embedding_bag_pallas(jhalf, jnp.asarray(ids), jw, combine=combine,
+                                  interpret=True)
+    assert pallas.dtype == jnp.float32
+    oracle = jbag_ref(jnp.asarray(wide), jnp.asarray(ids), jw, combine=combine)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), atol=ATOL)
+    np.testing.assert_allclose(port.numpy(), np.asarray(oracle), atol=ATOL)
+    same = ops.embedding_bag(torch.as_tensor(wide), torch.as_tensor(ids), tw,
+                             combine=combine)
+    assert torch.equal(port, same)
+    assert (port[7] == 0.0).all()
+
+
 @pytest.mark.parametrize("combine", ["sum", "mean"])
 def test_bag_padding_reads_row_zero_with_weight_zero(combine):
     """A padding id still forms 0 * row 0: a non-finite row 0 gives NaN in
@@ -103,8 +134,8 @@ def test_bag_cpu_tensors_take_the_plain_version_and_int64_ids():
 def test_bag_refuses_what_the_kernel_does_not_take():
     table = torch.zeros((10, 4))
     ids = torch.zeros((2, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="f32 table"):
-        ops.embedding_bag(table.to(torch.bfloat16), ids)
+    with pytest.raises(ValueError, match="f32, bf16 or f16 table"):
+        ops.embedding_bag(table.to(torch.int32), ids)
     with pytest.raises(ValueError, match="combine"):
         ops.embedding_bag(table, ids, combine="max")
     with pytest.raises(ValueError, match="weights"):

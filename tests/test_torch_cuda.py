@@ -31,7 +31,8 @@ from repro_torch.kernels.pdist.ref import pdist_ref  # noqa: E402
 from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.qpath.ref import qpath_matmul_ref  # noqa: E402
 from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref  # noqa: E402
-from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda  # noqa: E402
+from repro_torch.kernels.topk import topk as topk_mod  # noqa: E402
+from repro_torch.kernels.topk.topk import split_plan, topk_cuda, topk_quant_cuda  # noqa: E402
 from torch_parity import assert_same_ids  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -59,7 +60,7 @@ def _normal(shape, seed, dev):
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
-                 "bag_kernel"):
+                 "bag_kernel", "merge_kernel", "sqnorm_kernel"):
         assert name in info["ptxas"]
 
 
@@ -143,6 +144,81 @@ def test_topk_kernel_exclude_self_and_valid(cuda):
     assert (ids != np.arange(64)[:, None]).all()
     d, i = topk_cuda(X[:5], X[:5], k=5, metric="sqeuclidean", exclude_self=True)
     assert (i[:, -1] == -1).all() and torch.isinf(d[:, -1]).all()
+
+
+def _plan(m, n, k, metric, dev):
+    return split_plan(m, n, k, topk_mod._slots(metric, k, dev))
+
+
+def _split_case(case, dev):
+    """(X, Y, k, exclude_self, valid, metric) of one split-design case."""
+    rng = np.random.default_rng(SPLIT_CASES.index(case))
+    normal = (lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=dev))
+    if case == "ties across a boundary":
+        Y = normal(2048, 32)
+        Y = torch.cat([Y, Y])  # row j and j + 2048 lie in different splits
+        return Y[:64].clone(), Y, 10, False, None, "sqeuclidean"
+    if case == "a split masked":
+        Y = normal(4096, 24)
+        a, b = _plan(40, 4096, 10, "euclidean", dev)[1]
+        valid = torch.ones(4096, dtype=torch.bool, device=dev)
+        valid[a:b] = False
+        return normal(40, 24), Y, 10, False, valid, "euclidean"
+    if case == "k over one split":
+        return normal(40, 16), normal(4096, 16), 200, False, None, "euclidean"
+    if case == "k over n":
+        return normal(9, 16), normal(1000, 16), 1500, False, None, "euclidean"
+    if case == "exclude_self at boundaries":
+        X = normal(2048, 40)
+        return X, X, 16, True, None, "euclidean"
+    if case == "ragged strips":
+        return normal(100, 36), normal(5000, 36), 10, False, None, "euclidean"
+    if case == "ragged strips, 32-row":
+        return normal(33, 20), normal(5000, 20), 100, False, None, "cosine"
+    if case == "k = 600":
+        return normal(512, 64), normal(20000, 64), 600, False, None, "euclidean"
+    if case == "unaligned d":
+        return normal(70, 13), normal(3000, 13), 10, False, None, "dot"
+    raise KeyError(case)
+
+
+SPLIT_CASES = ["ties across a boundary", "a split masked", "k over one split", "k over n",
+               "exclude_self at boundaries", "ragged strips", "ragged strips, 32-row",
+               "k = 600", "unaligned d"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_topk_kernel_splits(cuda, case):
+    """The scan over S > 1 column ranges and the merge of their lists
+    against the plain version: one counted launch, (distance, column)
+    order across splits, (+inf, -1) past the valid candidates."""
+    X, Y, k, excl, valid, metric = _split_case(case, cuda)
+    m, n = X.shape[0], Y.shape[0]
+    plan = _plan(m, n, k, metric, cuda)
+    assert len(plan) > 1, plan
+    before = _build.launches()["topk/f32"]
+    od, oi = topk_cuda(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/f32"] == before + 1
+    rd, ri = topk_ref(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    assert_same_ids(oi, od, ri, rd)
+    live = n if valid is None else int(valid.sum())
+    live -= 1 if excl else 0
+    if k > live:
+        assert torch.isinf(od[:, live:]).all() and (oi[:, live:] == -1).all()
+    if case == "ties across a boundary":
+        # exact duplicates tie exactly: the lower copy first, in both
+        want = np.arange(64)[:, None] + np.array([0, 2048])
+        assert (oi[:, :2].cpu().numpy() == want).all()
+        assert torch.equal(oi[:, :2].cpu(), ri[:, :2].cpu())
+    if case == "a split masked":
+        a, b = plan[1]
+        assert not ((oi >= a) & (oi < b)).any()
+    if case == "exclude_self at boundaries":
+        rows = torch.tensor([a for a, _ in plan[1:]] + [b - 1 for _, b in plan],
+                            device=cuda)
+        assert not (oi[rows] == rows[:, None]).any()
 
 
 WIDE_K = [512, 513, 600, 2048]
@@ -380,6 +456,26 @@ def test_bag_kernel_matches_plain(cuda, D, combine, weighted):
     assert torch.equal(embedding_bag_cuda(table, ids.long(), w, combine=combine), out)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_bag_kernel_half_table_matches_plain(cuda, dtype, combine):
+    """A bf16 / f16 table read in its own dtype, converted exactly to f32:
+    bit-identical to the plain version, and to the kernel on its f32 copy."""
+    rng = np.random.default_rng(21)
+    V, B, S, D = 5000, 700, 39, 10
+    table = torch.as_tensor(rng.normal(size=(V, D)).astype(np.float32),
+                            device=cuda).to(dtype)
+    ids_np = rng.integers(0, V, size=(B, S)).astype(np.int32)
+    ids_np[rng.random((B, S)) < 0.1] = -1
+    ids = torch.as_tensor(ids_np, device=cuda)
+    w = torch.as_tensor(rng.uniform(0.5, 1.5, size=(B, S)).astype(np.float32), device=cuda)
+    out = embedding_bag_cuda(table, ids, w, combine=combine)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert torch.equal(out, embedding_bag_ref(table, ids, w, combine=combine))
+    assert torch.equal(out, embedding_bag_cuda(table.float(), ids, w, combine=combine))
+
+
 def test_bag_kernel_edges(cuda):
     table = _normal((10, 3), 5, cuda)
     empty = embedding_bag_cuda(table, torch.zeros((0, 4), dtype=torch.int32, device=cuda))
@@ -389,8 +485,8 @@ def test_bag_kernel_edges(cuda):
                                (table[2] + table[7])[None].cpu().numpy(), atol=1e-6)
     table[0] = math.inf  # padding still forms 0 * row 0
     assert torch.isnan(embedding_bag_cuda(table, one)).all()
-    with pytest.raises(ValueError, match="f32 table"):
-        embedding_bag_cuda(table.to(torch.bfloat16), one)
+    with pytest.raises(ValueError, match="f32, bf16 or f16 table"):
+        embedding_bag_cuda(table.to(torch.int32), one)
     with pytest.raises(ValueError, match="CUDA tensors"):
         embedding_bag_cuda(table, one.cpu())
 
