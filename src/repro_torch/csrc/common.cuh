@@ -58,29 +58,14 @@ __device__ __forceinline__ float accumulate(float acc, float x, float y) {
 //
 // A running top-k list is sorted ascending by (distance, column): an entry
 // goes after every entry with a smaller distance, or an equal distance and
-// a lower column.  Comparing pairs (BY_COLUMN) makes the lists independent
-// of the order in which candidates arrive, so lax.top_k's lowest-index tie
-// rule holds however a scan visits its columns, and lists of disjoint
-// column ranges merge by the same order (topk.cu's split merge).  +inf is
-// never inserted, so slots past the valid candidates keep (+inf, -1); a
-// finite candidate sorts before such a slot.
-//
-// topk_int8.cu's block owns a strip of SEL_ROWS query rows and streams the
-// corpus in tiles of SEL_COLS columns; a finished tile (distances with
-// every mask applied) is merged one row per warp: a ballot finds the
-// tile's entries below the row's current k-th distance, and lane 0
-// inserts those (insert_sorted).  The merge is written out in the kernel
-// body: as a shared __forceinline__ function taking the staged tile by
-// pointer, ptxas spilled in the f32 kernel of that same design (48
-// registers, 28 bytes of spill loads) and chip_smoke.py's kNN-graph and
-// ground-truth rows read 2.93 and 118.8 ms on an H100 against 2.34 and
-// 104.7 ms with the merge in the body (59 registers, no spill; NVIDIA H100
-// 80GB HBM3, 700 W).
+// a lower column.  Comparing pairs makes the lists independent of the
+// order in which candidates arrive, so lax.top_k's lowest-index tie rule
+// holds however a scan visits its columns, and lists of disjoint column
+// ranges merge by the same order (topk_merge).  +inf is never inserted, so
+// slots past the valid candidates keep (+inf, -1); a finite candidate
+// sorts before such a slot.
 // ---------------------------------------------------------------------------
 
-constexpr int SEL_ROWS = 32;
-constexpr int SEL_COLS = 64;
-constexpr int SEL_THREADS = 256;
 // Largest k whose running lists sit in shared memory: rows * k * 8 bytes
 // of dynamic shared memory (128 KB for 32 rows at k = 512), opted in with
 // cudaFuncSetAttribute.  Above it the lists live in global memory (the
@@ -90,26 +75,19 @@ constexpr int SEL_THREADS = 256;
 // take 485-619 ms on an H100 (NVIDIA H100 80GB HBM3, 700 W) against 6.3 ms
 // for the plain version.
 constexpr int SEL_SMEM_MAX_K = 512;
+// Most column splits of one scan: topk_merge holds one list head per lane.
+// Must match kernels/topk/topk.py:MAX_SPLITS.
+constexpr int MAX_SPLITS = 32;
 
-// (v, c) before (w, e) in a list's order.  BY_COLUMN = false compares the
-// distances alone, which is the same order where a scan offers its
-// columns in ascending order (topk_int8.cu: an equal distance then always
-// comes from a higher column) and keeps that kernel's code as it was.
-template <bool BY_COLUMN>
+// (v, c) before (w, e) in a list's order.
 __device__ __forceinline__ bool before(float v, int c, float w, int e) {
-  if constexpr (BY_COLUMN) {
-    return v < w || (v == w && c < e);
-  } else {
-    return v < w;
-  }
+  return v < w || (v == w && c < e);
 }
 
-template <bool BY_COLUMN = false>
-__device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
-                                              float v, int col) {
-  if (!before<BY_COLUMN>(v, col, bd[k - 1], bi[k - 1])) return;
+__device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k, float v, int col) {
+  if (!before(v, col, bd[k - 1], bi[k - 1])) return;
   int p = k - 1;
-  while (p > 0 && before<BY_COLUMN>(v, col, bd[p - 1], bi[p - 1])) {
+  while (p > 0 && before(v, col, bd[p - 1], bi[p - 1])) {
     bd[p] = bd[p - 1];
     bi[p] = bi[p - 1];
     --p;
@@ -123,19 +101,13 @@ __device__ __forceinline__ void insert_sorted(float* bd, int* bi, int k,
 // entries before (v, col), summed over the lanes' strided slices; the tail
 // then moves up one slot 32 entries at a time, top chunk first, each chunk
 // read before it is written.
-template <bool BY_COLUMN = false>
 __device__ __forceinline__ void warp_insert_sorted(float* bd, int* bi, int k,
                                                    float v, int col,
                                                    int lane) {
-  if (!before<BY_COLUMN>(v, col, bd[k - 1], bi[k - 1])) return;
+  if (!before(v, col, bd[k - 1], bi[k - 1])) return;
   int p = 0;
   for (int e = lane; e < k; e += 32) {
-    if constexpr (BY_COLUMN) {
-      const float w = bd[e];
-      if (w < v || (w == v && bi[e] < col)) ++p;
-    } else {
-      p += bd[e] <= v ? 1 : 0;
-    }
+    if (before(bd[e], bi[e], v, col)) ++p;
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
@@ -162,13 +134,10 @@ __device__ __forceinline__ void warp_insert_sorted(float* bd, int* bi, int k,
   __syncwarp();
 }
 
-// Dynamic shared memory of the running lists, opted in above 48 KB.
-template <typename Kernel>
-__host__ cudaError_t reserve_best_smem(Kernel kernel, int k, size_t* bytes) {
-  *bytes = static_cast<size_t>(SEL_ROWS) * k * (sizeof(float) + sizeof(int));
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
-}
-
 }  // namespace rt
+
+// The k smallest by (distance, column) of each row's `splits` sorted lists
+// (part (m, splits, k) -> out (m, k)), on `stream`; defined in topk.cu,
+// run by both scans after their column splits.
+extern "C" int topk_merge(const float* part_d, const int* part_i, float* out_d, int* out_i,
+                          int m, int splits, int k, void* stream);

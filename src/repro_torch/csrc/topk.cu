@@ -88,9 +88,8 @@ constexpr int BK = 32;           // d per pipeline stage
 constexpr int LDS = BK + 4;      // shared row stride, floats
 constexpr int STAGES = 3;
 constexpr int CAP = 32;          // survivors per row per round
-// Must match kernels/topk/topk.py:WIDE_ROWS_K and MAX_SPLITS.
+// Must match kernels/topk/topk.py:WIDE_ROWS_K.
 constexpr int WIDE_ROWS_K = 64;  // above it, 32-row strips
-constexpr int MAX_SPLITS = 32;   // one list head per lane in merge_kernel
 
 template <int TM, bool GLOBAL_LISTS>
 size_t smem_bytes(int k) {
@@ -333,14 +332,14 @@ __global__ void __launch_bounds__(THREADS, 2)
         for (int r = wrow; r < wrow + TM; ++r) {
           const int cnt = cand_n[r];
           for (int e = 0; e < cnt; ++e)
-            rt::warp_insert_sorted<true>(bd + r * ld, bi + r * ld, k, cand_d[r * CAP + e],
+            rt::warp_insert_sorted(bd + r * ld, bi + r * ld, k, cand_d[r * CAP + e],
                                    cand_i[r * CAP + e], lane);
         }
       } else if (lane < TM) {
         const int r = wrow + lane;
         const int cnt = cand_n[r];
         for (int e = 0; e < cnt; ++e)
-          rt::insert_sorted<true>(bd + r * ld, bi + r * ld, k, cand_d[r * CAP + e],
+          rt::insert_sorted(bd + r * ld, bi + r * ld, k, cand_d[r * CAP + e],
                             cand_i[r * CAP + e]);
       }
       __syncwarp();
@@ -406,7 +405,7 @@ __global__ void __launch_bounds__(THREADS)
       const float od = __shfl_xor_sync(0xffffffffu, wd, off);
       const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
       const int ol = __shfl_xor_sync(0xffffffffu, wl, off);
-      if (rt::before<true>(od, oi, wd, wi) || (od == wd && oi == wi && ol < wl)) {
+      if (rt::before(od, oi, wd, wi) || (od == wd && oi == wi && ol < wl)) {
         wd = od;
         wi = oi;
         wl = ol;
@@ -524,7 +523,7 @@ extern "C" int topk_f32(const float* X, const float* Y,
                         int d, int k, int metric, int exclude_self, int splits,
                         int cols_per_split, int aligned, void* stream) {
   const int fam = family(metric);
-  if (k < 1 || fam < 0 || splits < 1 || splits > MAX_SPLITS ||
+  if (k < 1 || fam < 0 || splits < 1 || splits > rt::MAX_SPLITS ||
       (splits > 1 && (part_d == nullptr || part_i == nullptr)) ||
       (fam == rt::MATMUL_FAMILY && norms == nullptr) || m < 1 ||
       cols_per_split < 1 || (long long)splits * cols_per_split < n)
@@ -548,7 +547,17 @@ extern "C" int topk_f32(const float* X, const float* Y,
     err = scan<rt::CHEBYSHEV_FAMILY>(a, aligned != 0, s);
   }
   if (err != 0 || splits == 1) return err;
-  merge_kernel<<<(m + WARPS - 1) / WARPS, THREADS, 0, s>>>(part_d, part_i, out_d,
-                                                            out_i, m, splits, k);
+  return topk_merge(part_d, part_i, out_d, out_i, m, splits, k, stream);
+}
+
+// merge_kernel for both scans (topk_int8.cu's too): common.cuh declares it.
+extern "C" int topk_merge(const float* part_d, const int* part_i, float* out_d,
+                          int* out_i, int m, int splits, int k, void* stream) {
+  if (m < 0 || k < 1 || splits < 1 || splits > rt::MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+  merge_kernel<<<(m + WARPS - 1) / WARPS, THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(part_d, part_i, out_d, out_i, m,
+                                                      splits, k);
   return static_cast<int>(cudaGetLastError());
 }

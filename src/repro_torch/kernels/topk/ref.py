@@ -63,6 +63,20 @@ def blocked_select(
     return best_d, best_i.to(torch.int32)
 
 
+def merge_splits_ref(part_d: torch.Tensor, part_i: torch.Tensor,
+                     k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest by (distance, column) of each row's S sorted lists,
+    (m, S, k) -> (m, k): the function of the kernels' merge of their
+    column splits (``csrc/topk.cu:merge_kernel``).  Two stable sorts, by
+    column then by distance; the (+inf, -1) slots sort last."""
+    m = part_d.shape[0]
+    d, i = part_d.reshape(m, -1), part_i.reshape(m, -1)
+    order = torch.sort(i, dim=1, stable=True).indices
+    d, i = d.gather(1, order), i.gather(1, order)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return d.gather(1, order), i.gather(1, order)
+
+
 def blocked_topk(
     Q: torch.Tensor,
     Y: torch.Tensor,

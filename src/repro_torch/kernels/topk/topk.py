@@ -15,20 +15,26 @@ from repro_torch.kernels.pdist.pdist import METRIC_CODES, regime
 from repro_torch.kernels.topk.ref import QUANT_METRICS, quantize_queries
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_RESIDENT_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_INT8_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_INT8_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 #: the f32 scan's geometry (must match ``csrc/topk.cu``): columns per tile,
-#: the k above which a strip is 32 rows instead of 64, the most column
-#: splits (one list head per lane of the merge's warp)
+#: the k above which a strip is 32 rows instead of 64
 TILE_COLS = 128
 WIDE_ROWS_K = 64
+#: the int8 scan's (``csrc/topk_int8.cu``): columns per tile; strips of
+#: 128 rows (8 warps of 16), 32 where the lists take the shared memory
+INT8_TILE_COLS = 128
+#: the largest k whose running lists sit in shared memory
+#: (``csrc/common.cuh:SEL_SMEM_MAX_K``)
+SMEM_MAX_K = 512
+#: the most column splits (one list head per lane of the merge's warp,
+#: ``csrc/common.cuh:MAX_SPLITS``)
 MAX_SPLITS = 32
 #: the most bytes the splits' (m, S, k) lists may take on the card
 SCRATCH_BYTES = 256 << 20
-#: (metric code, k) -> blocks of the scan one SM holds
-_RESIDENT: dict[tuple[int, int], int] = {}
+#: (C entry, its arguments) -> blocks of the scan one SM holds
+_RESIDENT: dict[tuple, int] = {}
 
 
 def rows_per_block(k: int) -> int:
@@ -37,16 +43,25 @@ def rows_per_block(k: int) -> int:
     return 64 if k <= WIDE_ROWS_K else 32
 
 
-def split_plan(m: int, n: int, k: int, slots: int = 2 * 132) -> list[tuple[int, int]]:
-    """The column ranges of the f32 scan's splits: contiguous, ascending,
-    whole tiles except the last, covering [0, n) once.  Each (row strip,
-    split) is one block; ``slots`` is how many blocks the card holds at
-    once.  The count S minimises the tiles the busiest slot scans (waves x
-    tiles per split), the fewest splits among equals, with at most
-    ``MAX_SPLITS`` and lists of at most ``SCRATCH_BYTES``.  S = 1 for n up
-    to one tile."""
-    strips = -(-max(m, 1) // rows_per_block(k))
-    tiles = max(1, -(-n // TILE_COLS))
+def int8_rows_per_block(k: int) -> int:
+    """Query rows per block of the int8 scan: 128, or 32 where the running
+    lists take the shared memory (``WIDE_ROWS_K`` < k <= ``SMEM_MAX_K``)."""
+    return 32 if WIDE_ROWS_K < k <= SMEM_MAX_K else 128
+
+
+def split_plan(m: int, n: int, k: int, slots: int = 2 * 132, *,
+               rows: Optional[int] = None,
+               tile_cols: int = TILE_COLS) -> list[tuple[int, int]]:
+    """The column ranges of a scan's splits: contiguous, ascending, whole
+    tiles of ``tile_cols`` except the last, covering [0, n) once.  Each
+    (row strip of ``rows`` queries, split) is one block; ``slots`` is how
+    many blocks the card holds at once.  The count S minimises the tiles
+    the busiest slot scans (waves x tiles per split), the fewest splits
+    among equals, with at most ``MAX_SPLITS`` and lists of at most
+    ``SCRATCH_BYTES``.  S = 1 for n up to one tile.  The defaults are the
+    f32 scan's geometry."""
+    strips = -(-max(m, 1) // (rows or rows_per_block(k)))
+    tiles = max(1, -(-n // tile_cols))
     most = min(MAX_SPLITS, tiles, max(1, SCRATCH_BYTES // (8 * max(m, 1) * k)))
     best = (math.inf, 1)
     for splits in range(1, most + 1):
@@ -56,20 +71,43 @@ def split_plan(m: int, n: int, k: int, slots: int = 2 * 132) -> list[tuple[int, 
         cost = -(-strips * splits // max(1, slots)) * per
         if cost < best[0]:
             best = (cost, per)
-    width = best[1] * TILE_COLS
+    width = best[1] * tile_cols
     return [(a, min(a + width, n)) for a in range(0, n, width)] or [(0, 0)]
 
 
-def _slots(metric: str, k: int, device) -> int:
-    """Blocks of the scan the card holds at once for this metric and k."""
-    key = (METRIC_CODES[metric], k)
+def _resident_slots(entry: str, args: tuple[int, ...], device) -> int:
+    """Blocks the card holds at once: the C entry ``entry`` (an occupancy
+    query taking ``args``) times the SMs."""
+    key = (entry, *args)
     if key not in _RESIDENT:
         blocks = ctypes.c_int(0)
-        fn = _build.function("topk_f32_blocks_per_sm", _RESIDENT_ARGTYPES)
-        _build.check(fn(*key, ctypes.byref(blocks)), "topk_f32_blocks_per_sm")
+        fn = _build.function(entry, [ctypes.c_int] * len(args) + [ctypes.c_void_p])
+        _build.check(fn(*args, ctypes.byref(blocks)), entry)
         _RESIDENT[key] = max(1, blocks.value)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return _RESIDENT[key] * sms
+
+
+def _slots(metric: str, k: int, device) -> int:
+    """Blocks of the f32 scan the card holds at once for this metric and k."""
+    return _resident_slots("topk_f32_blocks_per_sm", (METRIC_CODES[metric], k), device)
+
+
+def int8_plan(m: int, n: int, k: int, device) -> list[tuple[int, int]]:
+    """The int8 scan's column ranges on this card."""
+    rows = int8_rows_per_block(k)
+    slots = _resident_slots("topk_int8_blocks_per_sm", (k, rows), device)
+    return split_plan(m, n, k, slots, rows=rows, tile_cols=INT8_TILE_COLS)
+
+
+def _copy_width(d: int, *tensors: torch.Tensor) -> int:
+    """Bytes per global -> shared copy the int8 scan may use (must match
+    ``csrc/topk_int8.cu:Copy``): 16 where every row and base is 16-byte
+    aligned, 4 where they are 4-byte aligned, else 1."""
+    for width in (16, 4):
+        if d % width == 0 and all(t.data_ptr() % width == 0 for t in tensors):
+            return width
+    return 1
 
 
 def _check_k(k: int) -> int:
@@ -153,8 +191,10 @@ def topk_quant_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest corpus codes (n, d) int8 for every f32 query row of Q
     (m, d), CUDA -> (dists (m, k) f32 ascending, idxs (m, k) int32), by the
-    int8 kernel.  The query is prepared here (``ref.quantize_queries``), as
-    the JAX entry prepares it outside its kernel."""
+    int8 kernel: the scan over ``int8_plan``'s column ranges and, with more
+    than one, the merge of their lists, on the current stream — one counted
+    launch.  The query is prepared here (``ref.quantize_queries``), as the
+    JAX entry prepares it outside its kernel."""
     if metric not in QUANT_METRICS:
         raise ValueError(f"int8 topk regime does not support metric {metric!r}")
     k = _check_k(k)
@@ -172,17 +212,26 @@ def topk_quant_cuda(
     codes = codes.contiguous()
     sqnorms = sqnorms.float().contiguous()
     vmask = _valid_bytes(valid, n, Q.device)
+    if vmask is not None and vmask.data_ptr() % 4:
+        vmask = vmask.clone()  # the kernel copies the mask in 4-byte words
     out_d = torch.empty((m, k), dtype=torch.float32, device=Q.device)
     out_i = torch.empty((m, k), dtype=torch.int32, device=Q.device)
     if m == 0:
         return out_d, out_i
-    aligned = d % 4 == 0 and xq.data_ptr() % 4 == 0 and codes.data_ptr() % 4 == 0
+    plan = int8_plan(m, n, k, Q.device)
+    splits, width = len(plan), max(1, plan[0][1] - plan[0][0])
+    part_d = part_i = bound = None
+    if splits > 1:
+        part_d = torch.empty((m, splits, k), dtype=torch.float32, device=Q.device)
+        part_i = torch.empty((m, splits, k), dtype=torch.int32, device=Q.device)
+        # the splits' best k-th distance per row, lowered as they scan
+        bound = torch.full((m,), math.inf, dtype=torch.float32, device=Q.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
     fn = _build.function("topk_int8", _INT8_ARGTYPES)
     err = fn(xq.data_ptr(), codes.data_ptr(), alpha.data_ptr(), xn.data_ptr(),
-             sqnorms.data_ptr(),
-             None if vmask is None else vmask.data_ptr(),
-             out_d.data_ptr(), out_i.data_ptr(), m, n, d, k,
-             int(metric == "euclidean"), int(aligned),
+             sqnorms.data_ptr(), ptr(vmask), out_d.data_ptr(), out_i.data_ptr(),
+             ptr(part_d), ptr(part_i), ptr(bound), m, n, d, k, int(metric == "euclidean"),
+             int8_rows_per_block(k), splits, width, _copy_width(d, xq, codes),
              _build.stream_handle(Q.device))
     _build.check(err, "topk_int8")
     _build.note_launch("topk/int8")

@@ -5,8 +5,9 @@ skips without one (never at import, so every xdist worker collects the same
 tests).  Run on a card with ``pytest -m gpu tests/test_torch_cuda.py``.
 Tolerances: matmul-family and manhattan distances rtol 1e-5 / atol 5e-4
 (the JAX kernel tests' atol; manhattan sums d terms in another order);
-chebyshev bit-identical (a max of exact differences); int8 distances
-rtol / atol 1e-4 (``tests/test_quant.py:108-110``); ids identical except on
+chebyshev bit-identical (a max of exact differences); the int8 kernel
+bit-identical, distances and ids (its int32 cross term is exact and its
+epilogue rounds as the plain version does); f32 ids identical except on
 near ties; minmax and minplus bit-identical; logminplus atol 1e-5; the
 embedding bag atol 1e-6 (the kernel and its plain version round the same
 products and sums in the same order, so 0 is expected); recsys logits
@@ -32,7 +33,9 @@ from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda  # noqa: E402
 from repro_torch.kernels.qpath.ref import qpath_matmul_ref  # noqa: E402
 from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref  # noqa: E402
 from repro_torch.kernels.topk import topk as topk_mod  # noqa: E402
-from repro_torch.kernels.topk.topk import split_plan, topk_cuda, topk_quant_cuda  # noqa: E402
+from repro_torch.kernels.topk.topk import (  # noqa: E402
+    int8_plan, split_plan, topk_cuda, topk_quant_cuda,
+)
 from torch_parity import assert_same_ids  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -253,7 +256,7 @@ def test_topk_int8_kernel_wide_k(cuda, k):
     codes, scales, sqn = store.device_view()
     od, oi = topk_quant_cuda(Q, codes, scales, sqn, k=k, metric="euclidean")
     rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k, metric="euclidean")
-    assert_same_ids(oi, od, ri, rd, rtol=1e-4, atol=1e-4)
+    assert torch.equal(od, rd) and torch.equal(oi, ri)
     if k > 2000:
         assert torch.isinf(od[:, 2000:]).all() and (oi[:, 2000:] == -1).all()
 
@@ -327,7 +330,71 @@ def test_topk_int8_kernel_matches_plain(cuda, shape, metric):
     torch.cuda.synchronize()
     assert _build.launches()["topk/int8"] == before + 1
     rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k, metric=metric, valid=valid)
-    assert_same_ids(oi, od, ri, rd, rtol=1e-4, atol=1e-4)
+    assert torch.equal(od, rd) and torch.equal(oi, ri)
+
+
+def _int8_split_case(case, dev):
+    """(store, Q, k, valid) of one int8 split-design case."""
+    rng = np.random.default_rng(INT8_SPLIT_CASES.index(case))
+    normal = (lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=dev))
+    if case == "ties across a boundary":
+        X = normal(2048, 32)
+        X = torch.cat([X, X])  # equal codes 2048 columns apart, in different splits
+        return quant_lib.QuantStore.build(X), X[:64].clone(), 10, None
+    if case == "a split masked":
+        a, b = int8_plan(40, 4096, 10, dev)[1]
+        valid = torch.ones(4096, dtype=torch.bool, device=dev)
+        valid[a:b] = False
+        return quant_lib.QuantStore.build(normal(4096, 24)), normal(40, 24), 10, valid
+    if case == "k over one split":
+        return quant_lib.QuantStore.build(normal(4096, 16)), normal(40, 16), 200, None
+    if case == "k over n":
+        return quant_lib.QuantStore.build(normal(1000, 16)), normal(9, 16), 1500, None
+    if case == "ragged strips":
+        return quant_lib.QuantStore.build(normal(5000, 36)), normal(200, 36), 10, None
+    if case in ("unaligned d = 13", "unaligned d = 21"):
+        d = int(case.rsplit(" ", 1)[1])
+        valid = torch.as_tensor(np.arange(3000) % 7 != 3, device=dev)
+        return quant_lib.QuantStore.build(normal(3000, d)), normal(70, d), 10, valid
+    if case == "k = 600":
+        return quant_lib.QuantStore.build(normal(20000, 64)), normal(512, 64), 600, None
+    if case == "k = 2500":
+        return quant_lib.QuantStore.build(normal(8000, 20)), normal(37, 20), 2500, None
+    raise KeyError(case)
+
+
+INT8_SPLIT_CASES = ["ties across a boundary", "a split masked", "k over one split",
+                    "k over n", "ragged strips", "unaligned d = 13", "unaligned d = 21",
+                    "k = 600", "k = 2500"]
+
+
+@pytest.mark.parametrize("case", INT8_SPLIT_CASES)
+def test_topk_int8_kernel_splits(cuda, case):
+    """The int8 scan over S > 1 column ranges and the merge of their lists
+    against the plain version, bit for bit: one counted launch,
+    (distance, column) order across splits, (+inf, -1) past the valid
+    candidates."""
+    store, Q, k, valid = _int8_split_case(case, cuda)
+    codes, scales, sqn = store.device_view()
+    m, n = Q.shape[0], codes.shape[0]
+    plan = int8_plan(m, n, k, cuda)
+    assert len(plan) > 1, plan
+    before = _build.launches()["topk/int8"]
+    od, oi = topk_quant_cuda(Q, codes, scales, sqn, k=k, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/int8"] == before + 1
+    rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k, valid=valid)
+    assert torch.equal(od, rd) and torch.equal(oi, ri)
+    live = n if valid is None else int(valid.sum())
+    if k > live:
+        assert torch.isinf(od[:, live:]).all() and (oi[:, live:] == -1).all()
+    if case == "ties across a boundary":
+        want = np.arange(64)[:, None] + np.array([0, 2048])
+        assert (oi[:, :2].cpu().numpy() == want).all()
+    if case == "a split masked":
+        a, b = plan[1]
+        assert not ((oi >= a) & (oi < b)).any()
 
 
 @pytest.mark.parametrize("shape", QPATH_SHAPES + [(2048, 2048, 2048)])

@@ -190,6 +190,31 @@ def test_topk_quant_plain_cross_term_is_exact():
     np.testing.assert_allclose(to_np(dist[0]), [0.0, 0.0, 4.0 * d], rtol=1e-6)
 
 
+def test_topk_quant_ties_across_a_tile_boundary_pick_the_lowest_column():
+    """Duplicate corpus rows 192 apart, on both sides of the 128-column
+    tile boundary that JAX's kernel and the port's scan both cut at: their
+    codes and norms are equal, so they tie exactly and the lower column
+    comes first — in JAX's Pallas kernel (interpret mode), in the plain
+    version, and in the plain version at another panel width, bit for bit
+    (the int8 kernel's contract on the card)."""
+    rng = np.random.default_rng(16)
+    base = rng.normal(size=(192, 32)).astype(np.float32)
+    X = np.concatenate([base, base])  # row j and j + 192
+    Q = base[120:128] + 0.01 * rng.normal(size=(8, 32)).astype(np.float32)
+    js = jquant.QuantStore.build(X)
+    ts = tquant.QuantStore.build(torch.as_tensor(X))
+    codes, scales, sqn = ts.device_view()
+    out = topk_quant_ref(torch.as_tensor(Q), codes, scales, sqn, k=6, metric="euclidean")
+    ref = _jax_quant_scan(Q, js, k=6, metric="euclidean")
+    assert_same_ids(out[1], out[0], ref[1], ref[0], **QTOL)
+    want = np.arange(120, 128)[:, None] + np.array([0, 192])
+    np.testing.assert_array_equal(to_np(out[1])[:, :2], want)
+    np.testing.assert_array_equal(np.asarray(ref[1])[:, :2], want)
+    narrow = topk_quant_ref(torch.as_tensor(Q), codes, scales, sqn, k=6,
+                            metric="euclidean", block=64)
+    assert torch.equal(narrow[0], out[0]) and torch.equal(narrow[1], out[1])
+
+
 @pytest.mark.parametrize("metric", ["cosine", "manhattan"])
 def test_topk_scan_quant_dequant_path_matches_jax(stores, data, metric):
     """Metrics outside the int8 regime dequantise one block at a time, as

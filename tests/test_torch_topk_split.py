@@ -1,14 +1,21 @@
-"""The f32 topk kernel's column splits (``kernels/topk/topk.py:split_plan``),
-on the CPU: the plan is pure arithmetic, so its contract is checked here;
-the scan and merge it drives are held to their plain version on the card
-(``test_torch_cuda.py::test_topk_kernel_splits``)."""
+"""The topk kernels' column splits (``kernels/topk/topk.py:split_plan``),
+on the CPU, in the f32 scan's geometry and in the int8 scan's (strips of
+``int8_rows_per_block(k)`` rows, tiles of ``INT8_TILE_COLS`` columns): the
+plan is pure arithmetic, so its contract is checked here, with the merge's
+plain version over split lists; the scans and the merge kernel are held to
+their plain versions on the card (``test_torch_cuda.py::
+test_topk_kernel_splits``, ``::test_topk_int8_kernel_splits``)."""
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import quant as quant_lib  # noqa: E402
 from repro_torch.kernels.topk import topk as topk_mod  # noqa: E402
+from repro_torch.kernels.topk.ref import merge_splits_ref, topk_quant_ref  # noqa: E402
 from repro_torch.kernels.topk.topk import (  # noqa: E402
-    MAX_SPLITS, SCRATCH_BYTES, TILE_COLS, rows_per_block, split_plan,
+    INT8_TILE_COLS, MAX_SPLITS, SCRATCH_BYTES, TILE_COLS, int8_rows_per_block,
+    rows_per_block, split_plan,
 )
 
 # (m, n, k, slots): the main path's shapes (brute batch, kNN graph, ground
@@ -20,15 +27,34 @@ SHAPES = [
     (100, 4096, 200, 132), (33, 257, 5, 264), (1, 1, 1, 264), (6, 10, 25, 264),
     (64, 4096, 10, 264), (130, 129, 17, 264), (7, 1000, 5000, 132),
 ]
+# the int8 scan's: the quantized brute batch and whole query set (K = 64)
+# at one and two resident blocks per SM, 32-row strips (64 < k <= 512),
+# global lists (k = 600, 2500), ragged strips and tiny shapes
+INT8_SHAPES = [
+    (512, 60000, 64, 132), (512, 60000, 64, 264), (10000, 60000, 64, 132),
+    (512, 60000, 600, 132), (40, 4096, 200, 264), (200, 5000, 10, 132),
+    (37, 8000, 2500, 132), (9, 1000, 1500, 132), (1, 1, 1, 132), (6, 10, 25, 132),
+]
+GEOMETRIES = {"f32": dict(rows=None, tile_cols=TILE_COLS),
+              "int8": dict(rows=int8_rows_per_block, tile_cols=INT8_TILE_COLS)}
+PLANS = ([pytest.param(*s, "f32", id="-".join(map(str, s))) for s in SHAPES]
+         + [pytest.param(*s, "int8", id="int8-" + "-".join(map(str, s)))
+            for s in INT8_SHAPES])
 
 
-@pytest.mark.parametrize("m,n,k,slots", SHAPES)
-def test_split_plan_covers_the_columns_once_in_order(m, n, k, slots):
-    plan = split_plan(m, n, k, slots)
+def _plan(m, n, k, slots, geometry):
+    g = GEOMETRIES[geometry]
+    rows = g["rows"] and g["rows"](k)
+    return split_plan(m, n, k, slots, rows=rows, tile_cols=g["tile_cols"])
+
+
+@pytest.mark.parametrize("m,n,k,slots,geometry", PLANS)
+def test_split_plan_covers_the_columns_once_in_order(m, n, k, slots, geometry):
+    plan = _plan(m, n, k, slots, geometry)
     assert 1 <= len(plan) <= MAX_SPLITS
     assert plan[0][0] == 0 and plan[-1][1] == n
     width = plan[0][1] - plan[0][0]
-    assert width % TILE_COLS == 0 or len(plan) == 1
+    assert width % GEOMETRIES[geometry]["tile_cols"] == 0 or len(plan) == 1
     for (a, b), (c, _) in zip(plan, plan[1:]):
         assert b == c and b - a == width  # contiguous, ascending, equal widths
     assert all(b > a for a, b in plan)  # no empty split
@@ -51,6 +77,32 @@ def test_split_plan_fills_the_card_at_the_main_path_shapes():
             assert strips * len(plan) >= min(slots, strips * MAX_SPLITS) * 0.9
 
 
+@pytest.mark.parametrize("m,n,k", [(512, 60000, 64), (10000, 60000, 64)])
+@pytest.mark.parametrize("per_sm", [1, 2])
+def test_int8_split_plan_fills_the_card_at_the_main_path_shapes(m, n, k, per_sm):
+    """A 512-query batch of 128-row strips is 4 strips: the splits make it
+    about one block per SM, where the strips alone were 4 blocks (16 in
+    the first int8 design's 32-row strips)."""
+    slots = 132 * per_sm
+    plan = _plan(m, n, k, slots, "int8")
+    strips = -(-m // int8_rows_per_block(k))
+    assert strips * len(plan) >= min(slots, strips * MAX_SPLITS) * 0.9
+
+
+def test_int8_split_plan_caps_the_scratch():
+    """The int8 scan's (m, S, k) lists obey the same cap; past it, one
+    split writes the output itself."""
+    plan = _plan(10000, 60000, 600, 132, "int8")
+    assert 1 < len(plan) and 8 * 10000 * 600 * len(plan) <= SCRATCH_BYTES
+    assert len(_plan(10000, 60000, 4000, 132, "int8")) == 1
+
+
+def test_int8_rows_per_block_follows_k():
+    assert int8_rows_per_block(64) == 128 and int8_rows_per_block(65) == 32
+    assert int8_rows_per_block(topk_mod.SMEM_MAX_K) == 32
+    assert int8_rows_per_block(topk_mod.SMEM_MAX_K + 1) == 128
+
+
 def test_split_plan_caps_the_scratch():
     """More than one split needs an (m, S, k) scratch of at most
     SCRATCH_BYTES; one split writes the output itself."""
@@ -62,3 +114,27 @@ def test_split_plan_caps_the_scratch():
 def test_rows_per_block_follows_k():
     assert rows_per_block(10) == 64 and rows_per_block(topk_mod.WIDE_ROWS_K) == 64
     assert rows_per_block(topk_mod.WIDE_ROWS_K + 1) == 32 and rows_per_block(600) == 32
+
+
+@pytest.mark.parametrize("k", [10, 64, 700])
+def test_merge_of_split_lists_is_the_whole_top_k(k):
+    """``ref.merge_splits_ref`` (the function of the kernels' merge, which
+    ``chip_smoke.py`` holds ``topk_merge`` to) over the int8 plain
+    version's top k of each split's columns equals the plain top k over
+    all columns, bit for bit: duplicate rows tie across splits and k may
+    exceed a split (k = 700) or leave (+inf, -1) slots."""
+    rng = np.random.default_rng(k)
+    X = torch.as_tensor(rng.normal(size=(1500, 24)).astype(np.float32))
+    X = torch.cat([X, X])  # row j and j + 1500 lie in different splits
+    Q = torch.as_tensor(rng.normal(size=(9, 24)).astype(np.float32))
+    codes, scales, sqn = quant_lib.QuantStore.build(X, device="cpu").device_view()
+    plan = split_plan(9, 3000, k, 132, rows=int8_rows_per_block(k),
+                      tile_cols=INT8_TILE_COLS)
+    assert len(plan) > 1
+    parts = [topk_quant_ref(Q, codes[a:b], scales, sqn[a:b], k=k) for a, b in plan]
+    part_d = torch.stack([d for d, _ in parts], 1)
+    part_i = torch.stack([torch.where(i >= 0, i + a, i)
+                          for (_, i), (a, _) in zip(parts, plan)], 1)
+    md, mi = merge_splits_ref(part_d, part_i, k)
+    rd, ri = topk_quant_ref(Q, codes, scales, sqn, k=k)
+    assert torch.equal(md, rd) and torch.equal(mi, ri)
