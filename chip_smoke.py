@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero:
    version, each row with its column splits, its instance's registers,
    shared memory and spill bytes; the merge of the split lists alone, for
    the brute f32 batch and the quantized brute batch; qpath 2048^3 in all
-   three modes; the topk kernels at k = 600 (past the shared-memory lists) on
+   three modes, on the projection's first sweep operand and on its last
+   (after five doublings); the topk kernels at k = 600 (past the shared-memory lists) on
    one brute batch (512x60000x784: euclidean, manhattan, int8); the
    embedding bag at DeepFM's shapes (the (V, 1) first-order table at
    serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
@@ -96,8 +97,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 F32_FLOPS = 67e12  # an FMA counts as two flops
 F32_INSTR = F32_FLOPS / 2  # f32 lane instructions per second
 INT8_OPS = 1979e12
-# special-function units: 16 per SM per clock, 132 SMs at 1.98 GHz
-SFU_OPS = 132 * 16 * 1.98e9
 HBM_BYTES = 3.35e12
 
 DEVICE = "cuda"
@@ -277,7 +276,7 @@ def _ptxas_summary(report: str) -> dict:
             name = m.group(1)
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
                           "merge_kernel", "sqnorm_kernel", "qpath_kernel",
-                          "bag_kernel"):
+                          "min_splits_kernel", "bag_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
                     args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
@@ -330,7 +329,6 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
     from repro_torch.data import synthetic
     from repro_torch.kernels.pdist.pdist import pdist_cuda
     from repro_torch.kernels.pdist.ref import pdist_ref
-    from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda
     from repro_torch.kernels.qpath.ref import qpath_matmul_ref
     from repro_torch.kernels.topk import topk as topk_mod
     from repro_torch.kernels.topk.ref import quantize_queries, topk_quant_ref, topk_ref
@@ -504,44 +502,68 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
     del pool, corpus, queries, codes
 
     # qpath: the first sweep's operands of the projection (E = D on the
-    # symmetrised kNN graph + diagonal, +inf elsewhere)
+    # symmetrised kNN graph + diagonal, +inf elsewhere; 2 log E for
+    # logminplus) and the last sweep's (after five doublings, by the plain
+    # version): the first is ~1 % finite, the later ones ~10 %, and the
+    # logminplus skip is read at both
     idx, _ = knn_lib.knn_graph(S, k=16, metric="euclidean")
     mask = knn_lib.knn_mask(idx, S.shape[0])
     D = torch.where(eye, 0.0, pdist_ref(S, S, metric="euclidean"))
     E = torch.where(mask | mask.T | eye, D, float("inf"))
-    ns = E.shape[0]
     for mode in ("minmax", "minplus", "logminplus"):
-        A = 2.0 * torch.log(E) if mode == "logminplus" else E
-        out = qpath_matmul_cuda(A, A, mode=mode)
-        ref_q = qpath_matmul_ref(A, A, mode=mode)
-        fin = torch.isfinite(ref_q)
-        same_inf = torch.equal(fin, torch.isfinite(out)) and torch.equal(
-            out[~fin], ref_q[~fin])
-        err = float((out[fin] - ref_q[fin]).abs().max())
-        ok = same_inf and (torch.equal(out, ref_q) if mode != "logminplus"
-                           else err <= LOGMINPLUS_ATOL)
-        if not ok:
-            fail(f"qpath {mode} disagrees with its plain version (max err {err})")
-        if mode == "logminplus":
-            bound = _bound(ops=2 * ns ** 3, rate=SFU_OPS, nbytes=12 * ns * ns)
-        else:
-            bound = _bound(ops=2 * ns ** 3, rate=F32_INSTR, nbytes=12 * ns * ns)
-        rows.append({
-            "name": "qpath", "case": f"{mode} {ns}^3",
-            "path": QPATH_PATHS[mode],
-            "idle": None if QPATH_PATHS[mode] else "none: no build sweeps in this mode",
-            "counter": f"qpath/{mode}",
-            "source": "src/repro_torch/csrc/qpath.cu",
-            "replaces": "src/repro/kernels/qpath/qpath.py:45",
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: qpath_matmul_cuda(A, A, mode=mode), 5),
-            "plain_ms": cuda_ms(lambda: qpath_matmul_ref(A, A, mode=mode), 2),
-            "library_ms": None,
-            "bound": bound,
-        })
-        log("kernel " + json.dumps(rows[-1]))
+        first = 2.0 * torch.log(E) if mode == "logminplus" else E
+        last = first
+        for _ in range(NUM_HOPS - 1):
+            last = torch.minimum(last, qpath_matmul_ref(last, last, mode=mode))
+        for sweep, A in (("first", first), ("last", last)):
+            rows.append(_qpath_row(mode, sweep, A))
+            log("kernel " + json.dumps(rows[-1]))
+        del first, last
     rows += _bag_rows(seed)
     return rows
+
+
+def _qpath_row(mode: str, sweep: str, A) -> dict:
+    """qpath_matmul_cuda(A, A) against its plain version: minmax and
+    minplus bit-identical, logminplus within LOGMINPLUS_ATOL; infinities
+    must coincide.  The bound is two f32 instructions per (i, j, k) in
+    every mode: logminplus's max and skip test are minmax's two, and the
+    skip shows that the SFU work of a combine a triple does not need is no
+    part of the least time."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.qpath.qpath import (
+        MODE_CODES, TILE, WAVES, qpath_matmul_cuda, split_plan,
+    )
+    from repro_torch.kernels.qpath.ref import qpath_matmul_ref
+
+    ns = A.shape[0]
+    out = qpath_matmul_cuda(A, A, mode=mode)
+    ref_q = qpath_matmul_ref(A, A, mode=mode)
+    fin = torch.isfinite(ref_q)
+    same_inf = torch.equal(fin, torch.isfinite(out)) and torch.equal(out[~fin], ref_q[~fin])
+    err = float((out[fin] - ref_q[fin]).abs().max())
+    ok = same_inf and (torch.equal(out, ref_q) if mode != "logminplus"
+                       else err <= LOGMINPLUS_ATOL)
+    if not ok:
+        fail(f"qpath {mode} ({sweep} sweep) disagrees with its plain version (max err {err})")
+    slots = _build.resident_slots("qpath_blocks_per_sm", (MODE_CODES[mode],), A.device)
+    return {
+        "name": "qpath", "case": f"{mode} {ns}^3 {sweep} sweep",
+        "path": QPATH_PATHS[mode],
+        "idle": None if QPATH_PATHS[mode] else "none: no build sweeps in this mode",
+        "counter": f"qpath/{mode}",
+        "source": "src/repro_torch/csrc/qpath.cu",
+        "replaces": "src/repro/kernels/qpath/qpath.py:45",
+        "finite_share": float(torch.isfinite(A).float().mean()),
+        "splits": split_plan(ns, ns, ns, slots, TILE[mode], WAVES[mode])[0],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: qpath_matmul_cuda(A, A, mode=mode), 5),
+        "plain_ms": cuda_ms(lambda: qpath_matmul_ref(A, A, mode=mode), 2),
+        "library_ms": None,
+        "bound": _bound(ops=2 * ns ** 3, rate=F32_INSTR, nbytes=12 * ns * ns),
+    }
 
 
 def _int8_geometry(ptxas: dict, m: int, n: int, k: int, dev) -> dict:
@@ -934,7 +956,8 @@ def _bench_build(corpus, Qt, gt, q: float, extra: dict, what: str) -> dict:
     _check_result(res, Qt.shape[0], K, BENCH_N, what)
     return {"q": "inf" if math.isinf(q) else f"{q:g}",
             "beam_recall@10": _recall(res.idx, gt, K), "build_seconds": build_s,
-            "validation": index.train_history["validation"], "launches": counts,
+            "validation": index.train_history["validation"],
+            "stage_seconds": index.train_history["stage_seconds"], "launches": counts,
             "quant_store": getattr(index, "quant", None) is not None}
 
 

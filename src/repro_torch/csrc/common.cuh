@@ -1,9 +1,10 @@
-// Shared by the distance kernels (pdist.cu, topk.cu, topk_int8.cu): metric
-// codes, the fused epilogue that turns the f32 cross term and the two
-// squared norms into a distance — the arithmetic of kernels/pdist/ref.py
-// and of the TPU kernels' epilogues
-// (src/repro/kernels/pdist/pdist.py:_matmul_kernel) — and the streaming
-// top-k selection of the fused scans.
+// Shared by the distance kernels (pdist.cu, topk.cu, topk_int8.cu) and the
+// q-path sweep (qpath.cu): metric codes, the fused epilogue that turns the
+// f32 cross term and the two squared norms into a distance — the
+// arithmetic of kernels/pdist/ref.py and of the TPU kernels' epilogues
+// (src/repro/kernels/pdist/pdist.py:_matmul_kernel) — the cp.async copies
+// of the tiled kernels, and the streaming top-k selection of the fused
+// scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,58 @@ __device__ __forceinline__ float accumulate(float acc, float x, float y) {
     return acc + fabsf(x - y);
   } else {
     return fmaxf(acc, fabsf(x - y));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// global -> shared copies by cp.async (topk.cu, pdist.cu, qpath.cu)
+// ---------------------------------------------------------------------------
+
+// 16 bytes, or 16 zero bytes when !full (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// One float, or 0 when !full.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + R) x columns [k0, k0 + BK) of the row-major A (rows x ld)
+// into dst (R x LDS floats), zero past `rows` and past column kend, by the
+// THREADS threads of a block.  VEC: 16-byte chunks (ld and kend multiples
+// of 4, A 16-byte aligned, LDS a multiple of 4); else one float each.
+template <int R, int BK, int LDS, int THREADS, bool VEC>
+__device__ __forceinline__ void load_rows(float* dst, const float* A, int r0, int rows,
+                                          int k0, int kend, int ld, int tid) {
+  if constexpr (VEC) {
+    constexpr int CH = BK / 4;
+#pragma unroll
+    for (int e = tid; e < R * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = (e % CH) * 4;
+      const bool ok = r0 + r < rows && k0 + c < kend;
+      cp_async16(dst + r * LDS + c, ok ? A + (size_t)(r0 + r) * ld + k0 + c : A, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < R * BK; e += THREADS) {
+      const int r = e / BK;
+      const int c = e % BK;
+      const bool ok = r0 + r < rows && k0 + c < kend;
+      cp_async4(dst + r * LDS + c, ok ? A + (size_t)(r0 + r) * ld + k0 + c : A, ok);
+    }
   }
 }
 
@@ -135,6 +188,12 @@ __device__ __forceinline__ void warp_insert_sorted(float* bd, int* bi, int k,
 }
 
 }  // namespace rt
+
+// |a|^2 of every row of X (m, d) then Y (n, d) into norms (m + n), on
+// `stream`; defined in topk.cu, the pre-pass of the matmul family in
+// topk_f32 and pdist_f32.
+extern "C" int sqnorms(const float* X, const float* Y, float* norms, int m, int n, int d,
+                       void* stream);
 
 // The k smallest by (distance, column) of each row's `splits` sorted lists
 // (part (m, splits, k) -> out (m, k)), on `stream`; defined in topk.cu,

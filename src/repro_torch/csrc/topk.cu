@@ -100,56 +100,6 @@ size_t smem_bytes(int k) {
   return bytes;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + R) x d-values [k0, k0 + BK) of A (rows x d) into dst
-// (R x LDS), zero past `rows` and d.
-template <int R, bool VEC>
-__device__ __forceinline__ void load_slice(float* dst, const float* A, int r0,
-                                           int rows, int k0, int d, int tid) {
-  if constexpr (VEC) {
-    constexpr int CH = BK / 4;
-#pragma unroll
-    for (int e = tid; e < R * CH; e += THREADS) {
-      const int r = e / CH;
-      const int c = (e % CH) * 4;
-      const bool ok = r0 + r < rows && k0 + c < d;
-      cp_async16(dst + r * LDS + c, ok ? A + (size_t)(r0 + r) * d + k0 + c : A,
-                 ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int e = tid; e < R * BK; e += THREADS) {
-      const int r = e / BK;
-      const int c = e % BK;
-      const bool ok = r0 + r < rows && k0 + c < d;
-      cp_async4(dst + r * LDS + c, ok ? A + (size_t)(r0 + r) * d + k0 + c : A,
-                ok);
-    }
-  }
-}
-
 // |a|^2 of every row of X then Y, one warp per row, into norms (m + n).
 __global__ void __launch_bounds__(THREADS)
     sqnorm_kernel(const float* __restrict__ X, const float* __restrict__ Y,
@@ -233,14 +183,16 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int slot = g % STAGES;
     const int k0 = (g % nk) * BK;
     const int col0 = cbeg + (g / nk) * BN;
-    load_slice<BM, VEC>(xs_ring + slot * BM * LDS, X, row0, m, k0, d, tid);
-    load_slice<BN, VEC>(ys_ring + slot * BN * LDS, Y, col0, n, k0, d, tid);
+    rt::load_rows<BM, BK, LDS, THREADS, VEC>(xs_ring + slot * BM * LDS, X, row0, m, k0, d, d,
+                                             tid);
+    rt::load_rows<BN, BK, LDS, THREADS, VEC>(ys_ring + slot * BN * LDS, Y, col0, n, k0, d, d,
+                                             tid);
   };
 
 #pragma unroll
   for (int g = 0; g < STAGES - 1; ++g) {
     if (g < steps) load_stage(g);
-    cp_commit();
+    rt::cp_commit();
   }
 
   float acc[TM][TN];
@@ -250,10 +202,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
   for (int g = 0; g < steps; ++g) {
-    cp_wait<STAGES - 2>();
+    rt::cp_wait<STAGES - 2>();
     __syncthreads();  // stage g landed; every warp is done with stage g - 1
     if (g + STAGES - 1 < steps) load_stage(g + STAGES - 1);
-    cp_commit();
+    rt::cp_commit();
 
     const float* xs = xs_ring + (g % STAGES) * BM * LDS;
     const float* ys = ys_ring + (g % STAGES) * BN * LDS;
@@ -359,7 +311,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
   }
-  cp_wait<0>();
+  rt::cp_wait<0>();
 
   if constexpr (!GLOBAL_LISTS) {
 #pragma unroll
@@ -529,11 +481,9 @@ extern "C" int topk_f32(const float* X, const float* Y,
       cols_per_split < 1 || (long long)splits * cols_per_split < n)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fam == rt::MATMUL_FAMILY && m + n > 0) {
-    sqnorm_kernel<<<(m + n + WARPS - 1) / WARPS, THREADS, 0, s>>>(X, Y, norms, m,
-                                                                  n, d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (fam == rt::MATMUL_FAMILY) {
+    const int err = sqnorms(X, Y, norms, m, n, d, stream);
+    if (err != 0) return err;
   }
   const Args a{X, Y, valid, norms,
                splits > 1 ? part_d : out_d, splits > 1 ? part_i : out_i,
@@ -548,6 +498,15 @@ extern "C" int topk_f32(const float* X, const float* Y,
   }
   if (err != 0 || splits == 1) return err;
   return topk_merge(part_d, part_i, out_d, out_i, m, splits, k, stream);
+}
+
+extern "C" int sqnorms(const float* X, const float* Y, float* norms, int m, int n, int d,
+                       void* stream) {
+  if (m < 0 || n < 0 || d < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (m + n == 0) return 0;
+  sqnorm_kernel<<<(m + n + WARPS - 1) / WARPS, THREADS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(X, Y, norms, m, n, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // merge_kernel for both scans (topk_int8.cu's too): common.cuh declares it.

@@ -39,6 +39,8 @@ _LAUNCHES: dict[str, int] = {
 }
 #: the loaded library and what building it took
 _STATE: dict = {"lib": None, "info": None}
+#: (C entry, its arguments) -> blocks of a kernel one SM holds
+_RESIDENT: dict[tuple, int] = {}
 
 
 def note_launch(name: str) -> None:
@@ -150,3 +152,18 @@ def stream_handle(device) -> int:
 
     return torch.cuda.current_stream(device).cuda_stream
 
+
+def resident_slots(entry: str, args: tuple[int, ...], device) -> int:
+    """Blocks the card holds at once: the C entry ``entry`` (an occupancy
+    query taking ``args`` and writing the blocks one SM holds) times the
+    SMs."""
+    import torch
+
+    key = (entry, *args)
+    if key not in _RESIDENT:
+        blocks = ctypes.c_int(0)
+        fn = function(entry, [ctypes.c_int] * len(args) + [ctypes.c_void_p])
+        check(fn(*args, ctypes.byref(blocks)), entry)
+        _RESIDENT[key] = max(1, blocks.value)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _RESIDENT[key] * sms

@@ -15,7 +15,7 @@ CUBE_METRICS = ("manhattan", "chebyshev")
 METRIC_CODES = {"sqeuclidean": 0, "euclidean": 1, "cosine": 2, "dot": 3,
                 "manhattan": 4, "chebyshev": 5}
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def regime(metric: str) -> str:
@@ -39,9 +39,14 @@ def pdist_cuda(X: torch.Tensor, Y: torch.Tensor, *, metric: str) -> torch.Tensor
     out = torch.empty((m, n), dtype=torch.float32, device=X.device)
     if m == 0 or n == 0:
         return out
+    # the matmul family's squared norms, from the kernel's pre-pass
+    norms = (torch.empty(m + n, dtype=torch.float32, device=X.device)
+             if regime(metric) == "matmul" else None)
+    aligned = d % 4 == 0 and X.data_ptr() % 16 == 0 and Y.data_ptr() % 16 == 0
     fn = _build.function("pdist_f32", _ARGTYPES)
-    err = fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(), m, n, d,
-             METRIC_CODES[metric], _build.stream_handle(X.device))
+    err = fn(X.data_ptr(), Y.data_ptr(), out.data_ptr(),
+             None if norms is None else norms.data_ptr(), m, n, d,
+             METRIC_CODES[metric], int(aligned), _build.stream_handle(X.device))
     _build.check(err, "pdist_f32")
     _build.note_launch(f"pdist/{regime(metric)}")
     return out

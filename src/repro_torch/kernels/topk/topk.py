@@ -33,8 +33,6 @@ SMEM_MAX_K = 512
 MAX_SPLITS = 32
 #: the most bytes the splits' (m, S, k) lists may take on the card
 SCRATCH_BYTES = 256 << 20
-#: (C entry, its arguments) -> blocks of the scan one SM holds
-_RESIDENT: dict[tuple, int] = {}
 
 
 def rows_per_block(k: int) -> int:
@@ -75,28 +73,15 @@ def split_plan(m: int, n: int, k: int, slots: int = 2 * 132, *,
     return [(a, min(a + width, n)) for a in range(0, n, width)] or [(0, 0)]
 
 
-def _resident_slots(entry: str, args: tuple[int, ...], device) -> int:
-    """Blocks the card holds at once: the C entry ``entry`` (an occupancy
-    query taking ``args``) times the SMs."""
-    key = (entry, *args)
-    if key not in _RESIDENT:
-        blocks = ctypes.c_int(0)
-        fn = _build.function(entry, [ctypes.c_int] * len(args) + [ctypes.c_void_p])
-        _build.check(fn(*args, ctypes.byref(blocks)), entry)
-        _RESIDENT[key] = max(1, blocks.value)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _RESIDENT[key] * sms
-
-
 def _slots(metric: str, k: int, device) -> int:
     """Blocks of the f32 scan the card holds at once for this metric and k."""
-    return _resident_slots("topk_f32_blocks_per_sm", (METRIC_CODES[metric], k), device)
+    return _build.resident_slots("topk_f32_blocks_per_sm", (METRIC_CODES[metric], k), device)
 
 
 def int8_plan(m: int, n: int, k: int, device) -> list[tuple[int, int]]:
     """The int8 scan's column ranges on this card."""
     rows = int8_rows_per_block(k)
-    slots = _resident_slots("topk_int8_blocks_per_sm", (k, rows), device)
+    slots = _build.resident_slots("topk_int8_blocks_per_sm", (k, rows), device)
     return split_plan(m, n, k, slots, rows=rows, tile_cols=INT8_TILE_COLS)
 
 

@@ -42,7 +42,11 @@ pytestmark = pytest.mark.gpu
 
 MATMUL = ["sqeuclidean", "euclidean", "cosine", "dot"]
 CUBE = ["manhattan", "chebyshev"]
-QPATH_SHAPES = [(32, 48, 16), (128, 128, 128), (130, 70, 257), (8, 300, 9)]
+# (m, k, n): ragged tiles, k not a multiple of 4 (the 4-byte copies), k
+# shorter than one 32-deep stage, and a 16-byte-copy shape whose k ends
+# inside a stage
+QPATH_SHAPES = [(32, 48, 16), (128, 128, 128), (130, 70, 257), (8, 300, 9), (70, 7, 130),
+                (129, 20, 65), (128, 36, 128)]
 MODES = ["minplus", "minmax", "logminplus"]
 
 
@@ -63,12 +67,13 @@ def _normal(shape, seed, dev):
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
-                 "bag_kernel", "merge_kernel", "sqnorm_kernel"):
+                 "min_splits_kernel", "bag_kernel", "merge_kernel", "sqnorm_kernel"):
         assert name in info["ptxas"]
 
 
+# (m, n, d): ragged tiles, d % 4 != 0 (the 4-byte copies: d = 101, 3)
 @pytest.mark.parametrize("shape", [(40, 56, 20), (128, 128, 64), (33, 257, 100),
-                                   (2048, 2048, 784)])
+                                   (130, 70, 101), (65, 129, 3), (2048, 2048, 784)])
 @pytest.mark.parametrize("metric", MATMUL)
 def test_pdist_kernel_matches_plain(cuda, shape, metric):
     m, n, d = shape
@@ -82,7 +87,8 @@ def test_pdist_kernel_matches_plain(cuda, shape, metric):
                                rtol=1e-5, atol=5e-4)
 
 
-@pytest.mark.parametrize("shape", [(40, 56, 20), (33, 257, 100), (2048, 2048, 784)])
+@pytest.mark.parametrize("shape", [(40, 56, 20), (33, 257, 100), (130, 70, 101), (65, 129, 3),
+                                   (2048, 2048, 784)])
 @pytest.mark.parametrize("metric", CUBE)
 def test_pdist_cube_kernel_matches_plain(cuda, shape, metric):
     m, n, d = shape
@@ -427,6 +433,47 @@ def test_qpath_kernel_infinities(cuda, mode):
     ref = qpath_matmul_ref(L, L, mode="logminplus")
     assert not torch.isnan(out).any()
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+
+
+def _late_sweep_operand(dev, mode: str) -> torch.Tensor:
+    """A projection's operand after five doubling sweeps, by the plain
+    version: the kNN graph of 300 manifold points with two random links a
+    node (as the index build adds), in the mode's domain (log power for
+    logminplus); dense once the links join the graph."""
+    rng = np.random.default_rng(5)
+    X = torch.as_tensor(synthetic.make("manifold", 300, seed=5), device=dev)
+    idx = topk_ref(X, X, k=8, metric="euclidean", exclude_self=True)[1]
+    links = torch.as_tensor(rng.integers(0, 300, size=(300, 2)), device=dev)
+    eye = torch.eye(300, dtype=torch.bool, device=dev)
+    mask = torch.zeros((300, 300), dtype=torch.bool, device=dev)
+    rows = torch.arange(300, device=dev)[:, None]
+    mask[rows, idx.long()] = True
+    mask[rows, links] = True
+    D = torch.where(eye, 0.0, pdist_ref(X, X, metric="euclidean"))
+    M = torch.where(mask | mask.T | eye, D, math.inf)
+    if mode == "logminplus":
+        M = 2.0 * torch.log(M)
+    for _ in range(5):
+        M = torch.minimum(M, qpath_matmul_ref(M, M, mode=mode))
+    return M
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_qpath_kernel_on_a_late_sweep_operand(cuda, mode, monkeypatch):
+    from repro_torch.kernels.qpath import qpath as qpath_mod
+
+    M = _late_sweep_operand(cuda, mode)
+    assert torch.isfinite(M).float().mean() > 0.9
+    ref = qpath_matmul_ref(M, M, mode=mode)
+    out = qpath_matmul_cuda(M, M, mode=mode)
+    if mode == "logminplus":
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    else:
+        assert torch.equal(out, ref)
+    # min is exact: any cut of k into splits gives the same bits
+    for splits, per in ((2, 160), (5, 64), (10, 32)):
+        monkeypatch.setattr(qpath_mod, "split_plan", lambda *a, plan=(splits, per): plan)
+        assert torch.equal(qpath_matmul_cuda(M, M, mode=mode), out)
 
 
 def test_projection_on_card_matches_cpu(cuda):
