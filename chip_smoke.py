@@ -18,8 +18,8 @@ Phases, in order; any failure exits non-zero:
    version, each row with its column splits, its instance's registers,
    shared memory and spill bytes; the merge of the split lists alone, for
    the brute f32 batch and the quantized brute batch; qpath 2048^3 in all
-   three modes, on the projection's first sweep operand and on its last
-   (after five doublings); the topk kernels at k = 600 (past the shared-memory lists) on
+   three modes, on a fixed first sweep operand and on its last (after
+   five doublings); the topk kernels at k = 600 (past the shared-memory lists) on
    one brute batch (512x60000x784: euclidean, manhattan, int8); the
    embedding bag at DeepFM's shapes (the (V, 1) first-order table at
    serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
@@ -71,6 +71,12 @@ Phases, in order; any failure exits non-zero:
    against the exact cosine top-10 (at least ``INF_RETRIEVAL_FLOOR``); its
    window launches the bag, the f32 topk, the matmul pdist and six
    logminplus sweeps.
+
+Last, the qpath kernel on the sweep operands the windows ran, recorded
+in each window (the full-width build and the bench-config q=inf build in
+minmax, the bench-config q=2 build and the infinity retrieval in
+logminplus), each held against its plain version and timed, one row per
+window.
 
 The line before the last is a JSON object listing every kernel row, each
 with the launches of the window that runs it (``path``); the last is
@@ -135,10 +141,13 @@ NUM_HOPS = 6  # IndexConfig().num_hops: qpath sweeps per build
 K = 10  # every serving phase answers top-10
 SEARCH_KW = dict(budget=1024, rerank=256, mode="auto")
 BENCH_N, BENCH_Q = 2048, 512  # benchmarks/bench_infinity.py defaults
-# the window whose launch count each qpath mode reports: q=inf builds sweep
-# in minmax, finite-q builds in logminplus; no build sweeps in minplus
-QPATH_PATHS = {"minmax": "full-width build", "minplus": None,
-               "logminplus": "bench-config build q=2"}
+# the windows whose recorded sweep operands the qpath path rows replay:
+# q=inf builds sweep in minmax, finite-q builds in logminplus, no build
+# sweeps in minplus
+QPATH_WINDOWS = ("full-width build", "bench-config build q=inf",
+                 "bench-config build q=2", "infinity retrieval")
+NO_QPATH_WINDOW = ("none: a fixed 2048^3 operand; the sweeps the windows ran are "
+                   "the rows named by their window")
 NO_CHEBYSHEV = "none: no chebyshev window on the main path"
 # topk past the shared-memory lists (k > 512): no engine on the main path
 # asks for it
@@ -189,6 +198,28 @@ def counted(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, _build.launches()
+
+
+@contextlib.contextmanager
+def recorded_sweeps(into: list | None):
+    """While the block runs, append a copy of the operands of every
+    semiring product the projection asks for to ``into`` as (mode, A, B),
+    B None where it is A (the doubling sweeps square M); nothing is
+    recorded where ``into`` is None.  The copies launch no counted kernel."""
+    from repro_torch.core import qmetric
+
+    inner = qmetric.qpath_ops.qpath_matmul
+
+    def spy(A, B, *, mode="minmax", row_block=32):
+        into.append((mode, A.clone(), None if B is A else B.clone()))
+        return inner(A, B, mode=mode, row_block=row_block)
+
+    if into is not None:
+        qmetric.qpath_ops.qpath_matmul = spy
+    try:
+        yield into
+    finally:
+        qmetric.qpath_ops.qpath_matmul = inner
 
 
 def require(counts: dict, want: dict, what: str) -> None:
@@ -523,13 +554,14 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
     return rows
 
 
-def _qpath_row(mode: str, sweep: str, A) -> dict:
-    """qpath_matmul_cuda(A, A) against its plain version: minmax and
-    minplus bit-identical, logminplus within LOGMINPLUS_ATOL; infinities
-    must coincide.  The bound is two f32 instructions per (i, j, k) in
-    every mode: logminplus's max and skip test are minmax's two, and the
-    skip shows that the SFU work of a combine a triple does not need is no
-    part of the least time."""
+def _qpath_sweep(mode: str, A, B, what: str) -> dict:
+    """qpath_matmul_cuda(A, B) against its plain version on one operand:
+    minmax and minplus bit-identical, logminplus within LOGMINPLUS_ATOL;
+    infinities must coincide.  Returns its error, times, splits and
+    bound.  The bound is two f32 instructions per (i, j, k) in every mode:
+    logminplus's max and skip test are minmax's two, and the skip shows
+    that the SFU work of a combine a triple does not need is no part of
+    the least time."""
     import torch
 
     from repro_torch.kernels import _build
@@ -538,32 +570,82 @@ def _qpath_row(mode: str, sweep: str, A) -> dict:
     )
     from repro_torch.kernels.qpath.ref import qpath_matmul_ref
 
-    ns = A.shape[0]
-    out = qpath_matmul_cuda(A, A, mode=mode)
-    ref_q = qpath_matmul_ref(A, A, mode=mode)
+    (m, kd), n = A.shape, B.shape[1]
+    out = qpath_matmul_cuda(A, B, mode=mode)
+    ref_q = qpath_matmul_ref(A, B, mode=mode)
     fin = torch.isfinite(ref_q)
     same_inf = torch.equal(fin, torch.isfinite(out)) and torch.equal(out[~fin], ref_q[~fin])
     err = float((out[fin] - ref_q[fin]).abs().max())
     ok = same_inf and (torch.equal(out, ref_q) if mode != "logminplus"
                        else err <= LOGMINPLUS_ATOL)
     if not ok:
-        fail(f"qpath {mode} ({sweep} sweep) disagrees with its plain version (max err {err})")
+        fail(f"qpath {mode} ({what}) disagrees with its plain version (max err {err})")
     slots = _build.resident_slots("qpath_blocks_per_sm", (MODE_CODES[mode],), A.device)
     return {
-        "name": "qpath", "case": f"{mode} {ns}^3 {sweep} sweep",
-        "path": QPATH_PATHS[mode],
-        "idle": None if QPATH_PATHS[mode] else "none: no build sweeps in this mode",
-        "counter": f"qpath/{mode}",
+        "shape": [m, kd, n],
+        "finite_share": float(torch.isfinite(A).float().mean()),
+        "splits": split_plan(m, kd, n, slots, TILE[mode], WAVES[mode])[0],
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: qpath_matmul_cuda(A, B, mode=mode), 5),
+        "plain_ms": cuda_ms(lambda: qpath_matmul_ref(A, B, mode=mode), 2),
+        "bound": _bound(ops=2 * m * kd * n, rate=F32_INSTR,
+                        nbytes=4 * (m * kd + kd * n + m * n)),
+    }
+
+
+def _qpath_row(mode: str, sweep: str, A) -> dict:
+    """The kernel on a fixed 2048^3 operand (``sweep``: the first or the
+    last of a doubling projection); no window runs it."""
+    got = _qpath_sweep(mode, A, A, f"{sweep} sweep")
+    return {
+        "name": "qpath", "case": f"{mode} {A.shape[0]}^3 {sweep} sweep",
+        "path": None, "idle": NO_QPATH_WINDOW, "counter": f"qpath/{mode}",
         "source": "src/repro_torch/csrc/qpath.cu",
         "replaces": "src/repro/kernels/qpath/qpath.py:45",
-        "finite_share": float(torch.isfinite(A).float().mean()),
-        "splits": split_plan(ns, ns, ns, slots, TILE[mode], WAVES[mode])[0],
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: qpath_matmul_cuda(A, A, mode=mode), 5),
-        "plain_ms": cuda_ms(lambda: qpath_matmul_ref(A, A, mode=mode), 2),
+        **{k: got[k] for k in ("finite_share", "splits", "max_abs_err", "ms", "plain_ms",
+                               "bound")},
         "library_ms": None,
-        "bound": _bound(ops=2 * ns ** 3, rate=F32_INSTR, nbytes=12 * ns * ns),
     }
+
+
+def phase_qpath_windows(sweeps: dict) -> list[dict]:
+    """The kernel on every sweep operand each window of ``QPATH_WINDOWS``
+    ran, recorded in that window, each held against its plain version.
+    One row a window: ``ms`` and ``plain_ms`` are the means over its
+    sweeps, so ms x launches is the window's kernel time, and ``bound``
+    the mean of the sweeps' bounds; each sweep's own reading is in
+    ``sweeps``."""
+    rows = []
+    for window in QPATH_WINDOWS:
+        ops = sweeps[window]
+        modes = {mode for mode, _, _ in ops}
+        if len(modes) != 1 or len(ops) != NUM_HOPS:
+            fail(f"{window}: recorded {len(ops)} sweeps in modes {sorted(modes)}, "
+                 f"want {NUM_HOPS} in one mode")
+        mode = modes.pop()
+        got = [_qpath_sweep(mode, A, A if B is None else B, f"{window}, sweep {t}")
+               for t, (mode, A, B) in enumerate(ops)]
+        def mean(key):
+            return sum(g[key] for g in got) / len(got)
+
+        bounds = [g["bound"] for g in got]
+        m, kd, n = got[0]["shape"]
+        rows.append({
+            "name": "qpath", "case": f"{mode} {m}x{kd}x{n} {window}, {len(got)} sweeps",
+            "path": window, "idle": None, "counter": f"qpath/{mode}",
+            "source": "src/repro_torch/csrc/qpath.cu",
+            "replaces": "src/repro/kernels/qpath/qpath.py:45",
+            "max_abs_err": max(g["max_abs_err"] for g in got),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"), "library_ms": None,
+            "bound": {"ms": sum(b["ms"] for b in bounds) / len(bounds),
+                      "by": "operations" if all(b["by"] == "operations" for b in bounds)
+                      else "bytes"},
+            "sweeps": [{k: g[k] for k in ("shape", "finite_share", "splits", "max_abs_err",
+                                         "ms", "plain_ms")} for g in got],
+        })
+        log("kernel " + json.dumps(rows[-1]))
+        del ops[:]
+    return rows
 
 
 def _int8_geometry(ptxas: dict, m: int, n: int, k: int, dev) -> dict:
@@ -829,12 +911,13 @@ def _rates(times: list, queries: int) -> dict:
 
 
 def _infinity_full_width(label: str, corpus, Qt, cfg: dict, metric: str,
-                         build_want: dict, gt_counter: str) -> tuple[dict, dict]:
+                         build_want: dict, gt_counter: str,
+                         sweeps: list | None = None) -> tuple[dict, dict]:
     """Build an infinity index over ``corpus`` from ``cfg`` (a counted
-    window), take the exact ground truth by the topk kernel (a counted
-    window), and serve ``Qt``: beam batches, one best-first batch of 32 and
-    one k=1 search (a counted window).  Returns (the printed row, the
-    state later phases reuse)."""
+    window, its sweep operands recorded into ``sweeps``), take the exact
+    ground truth by the topk kernel (a counted window), and serve ``Qt``:
+    beam batches, one best-first batch of 32 and one k=1 search (a counted
+    window).  Returns (the printed row, the state later phases reuse)."""
     import torch
 
     from repro_torch.core import index as index_lib
@@ -844,8 +927,9 @@ def _infinity_full_width(label: str, corpus, Qt, cfg: dict, metric: str,
     n = corpus.shape[0]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    index, build_counts = counted(lambda: index_lib.build("infinity", corpus, cfg,
-                                                          device=dev))
+    with recorded_sweeps(sweeps):
+        index, build_counts = counted(lambda: index_lib.build("infinity", corpus, cfg,
+                                                              device=dev))
     build_s = time.perf_counter() - t0
     require(build_counts, build_want, f"{label} build")
     t0 = time.perf_counter()
@@ -906,10 +990,12 @@ def _full_width_data(seed: int):
     return pool[:CORPUS], torch.as_tensor(pool[CORPUS:], device=DEVICE), data_s
 
 
-def phase_main_path(corpus, Qt, data_s: float) -> tuple[dict, dict]:
+def phase_main_path(corpus, Qt, data_s: float, sweeps: dict) -> tuple[dict, dict]:
+    sweeps["full-width build"] = []
     main, state = _infinity_full_width(
         "full-width", corpus, Qt, {}, "euclidean",
-        {"topk/f32": 1, "pdist/matmul": 1, "qpath/minmax": NUM_HOPS}, "topk/f32")
+        {"topk/f32": 1, "pdist/matmul": 1, "qpath/minmax": NUM_HOPS}, "topk/f32",
+        sweeps["full-width build"])
     main["data_seconds"] = data_s
     log("main_path " + json.dumps(main))
     if main["recall@10"] < FULL_RECALL_FLOOR:
@@ -936,18 +1022,21 @@ def _bench_data(seed: int):
     return corpus, Qt, gt
 
 
-def _bench_build(corpus, Qt, gt, q: float, extra: dict, what: str) -> dict:
+def _bench_build(corpus, Qt, gt, q: float, extra: dict, what: str,
+                 sweeps: list | None = None) -> dict:
     """Build the bench config at q (plus ``extra`` cfg keys) as a counted
-    window, search all queries with its defaults and read recall@10."""
+    window, its sweep operands recorded into ``sweeps``, search all queries
+    with its defaults and read recall@10."""
     import torch
 
     from repro_torch.core import index as index_lib
 
     t0 = time.perf_counter()
-    index, counts = counted(lambda: index_lib.build("infinity", corpus, {
-        "q": q, "proj_sample": 512, "train_steps": 300,
-        "budget": 1024, "rerank": 256, **extra,
-    }, device=DEVICE))
+    with recorded_sweeps(sweeps):
+        index, counts = counted(lambda: index_lib.build("infinity", corpus, {
+            "q": q, "proj_sample": 512, "train_steps": 300,
+            "budget": 1024, "rerank": 256, **extra,
+        }, device=DEVICE))
     build_s = time.perf_counter() - t0
     sweeps = "qpath/minmax" if math.isinf(q) else "qpath/logminplus"
     require(counts, {"topk/f32": 1, "pdist/matmul": 1, sweeps: NUM_HOPS}, what)
@@ -961,10 +1050,12 @@ def _bench_build(corpus, Qt, gt, q: float, extra: dict, what: str) -> dict:
             "quant_store": getattr(index, "quant", None) is not None}
 
 
-def phase_parity(bench) -> list[dict]:
+def phase_parity(bench, sweeps: dict) -> list[dict]:
     rows = []
     for q, target in BENCH_TARGETS.items():
-        row = _bench_build(*bench, q, {}, f"bench-config build q={q}")
+        what = f"bench-config build q={q:g}"
+        sweeps[what] = []
+        row = _bench_build(*bench, q, {}, what, sweeps[what])
         row["target"] = target
         rows.append(row)
         log("parity " + json.dumps(row))
@@ -1211,10 +1302,21 @@ def _recsys_retrieval(cfg, model, shape, seed: int) -> dict:
             "selection": "stable descending sort of the scores (lax.top_k's tie rule)"}
 
 
-def _infinity_retrieval(cfg, model, seed: int) -> dict:
-    """``examples/recsys_retrieval.py``'s flow with full-width DeepFM user
-    embeddings: one counted window from the user embeddings to the search."""
+def inf_candidates(cfg, seed: int, dev):
+    """The infinity retrieval's candidates: random normal, L2-normalised."""
     import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cand = torch.as_tensor(rng.normal(size=(INF_CANDIDATES, cfg.embed_dim))
+                           .astype(np.float32), device=dev)
+    return cand / cand.norm(dim=1, keepdim=True)
+
+
+def _infinity_retrieval(cfg, model, seed: int, sweeps: list) -> dict:
+    """``examples/recsys_retrieval.py``'s flow with full-width DeepFM user
+    embeddings: one counted window from the user embeddings to the search,
+    its sweep operands recorded into ``sweeps``."""
     import torch
 
     from repro_torch.core.search import IndexConfig, InfinityIndex
@@ -1222,9 +1324,7 @@ def _infinity_retrieval(cfg, model, seed: int) -> dict:
     from repro_torch.models.recsys import user_embedding
 
     dev = torch.device(DEVICE)
-    rng = np.random.default_rng(seed)
-    cand = torch.as_tensor(rng.normal(size=(INF_CANDIDATES, cfg.embed_dim))
-                           .astype(np.float32), device=dev)
+    cn = inf_candidates(cfg, seed, dev)
     ids = torch.as_tensor(recsys_batch(1, INF_USERS, cfg.vocabs, seed=seed)["ids"],
                           device=dev)
 
@@ -1232,15 +1332,15 @@ def _infinity_retrieval(cfg, model, seed: int) -> dict:
         with torch.no_grad():
             users = user_embedding(model, ids, cfg)
         un = users / users.norm(dim=1, keepdim=True)
-        cn = cand / cand.norm(dim=1, keepdim=True)
         t0 = time.perf_counter()
-        index = InfinityIndex.build(cn, IndexConfig(**INF_INDEX), device=dev)
+        with recorded_sweeps(sweeps):
+            index = InfinityIndex.build(cn, IndexConfig(**INF_INDEX), device=dev)
         build_s = time.perf_counter() - t0
         res = index.search(un, **INF_SEARCH)
-        return un, cn, index, build_s, res
+        return un, index, build_s, res
 
     t0 = time.perf_counter()
-    (un, cn, index, build_s, res), counts = counted(run)
+    (un, index, build_s, res), counts = counted(run)
     total_s = time.perf_counter() - t0
     require(counts, {"bag": 1, "topk/f32": 1, "pdist/matmul": 1,
                      "qpath/logminplus": NUM_HOPS}, "infinity retrieval")
@@ -1258,7 +1358,7 @@ def _infinity_retrieval(cfg, model, seed: int) -> dict:
     return row
 
 
-def phase_recsys(seed: int) -> list[dict]:
+def phase_recsys(seed: int, sweeps: dict) -> list[dict]:
     import torch
 
     from repro_torch import configs
@@ -1287,7 +1387,8 @@ def phase_recsys(seed: int) -> list[dict]:
             rows.append(row)
             log("recsys " + json.dumps(row))
         if arch == "deepfm":
-            rows.append(_infinity_retrieval(cfg, model, seed))
+            sweeps["infinity retrieval"] = []
+            rows.append(_infinity_retrieval(cfg, model, seed, sweeps["infinity retrieval"]))
             log("recsys " + json.dumps(rows[-1]))
         if arch == "xdeepfm":
             B = shapes["serve_bulk"].batch
@@ -1326,14 +1427,16 @@ def main(argv=None) -> int:
     env = phase_environment(_build.build())
     rows = phase_kernels(args.seed, env["kernels"])
     corpus, Qt, data_s = _full_width_data(args.seed)
-    main_path, main_state = phase_main_path(corpus, Qt, data_s)
+    sweeps = {}
+    main_path, main_state = phase_main_path(corpus, Qt, data_s, sweeps)
     bench = _bench_data(args.seed)
-    parity = phase_parity(bench)
+    parity = phase_parity(bench, sweeps)
     quant = phase_quant(corpus, Qt, main_state, bench, parity)
     del main_state
     manhattan = phase_manhattan(corpus, Qt)
     del corpus, Qt
-    recsys = phase_recsys(args.seed)
+    recsys = phase_recsys(args.seed, sweeps)
+    rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],
                "full-width ground truth": main_path["launches"]["ground_truth"],

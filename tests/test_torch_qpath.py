@@ -82,3 +82,34 @@ def test_split_plan_covers_k_in_whole_stages(shape, mode, slots):
     if splits > 1:
         assert per >= MIN_SPLIT_K or kd < MIN_SPLIT_K
         assert tiles * splits <= WAVES[mode] * slots
+
+
+@pytest.mark.parametrize("q", [2.0, INF])
+def test_recorded_sweeps_replays_a_builds_projection(q):
+    # chip_smoke.py and tools/profile_qpath.py time the kernel on the
+    # operands a build's projection hands it, recorded by this context
+    # manager: every sweep of a small CPU build, in the build's mode, the
+    # doubling sweeps' right operand being the left one; the library's
+    # entry is restored afterwards
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import qmetric
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.qpath.ref import qpath_matmul_ref
+
+    entry = qmetric.qpath_ops.qpath_matmul
+    corpus = synthetic.make("manifold", 200, seed=0)
+    seen = []
+    with chip_smoke.recorded_sweeps(seen):
+        index_lib.build("infinity", corpus, {"q": q, "proj_sample": 96, "train_steps": 2},
+                        device="cpu")
+    assert qmetric.qpath_ops.qpath_matmul is entry
+    mode = "minmax" if math.isinf(q) else "logminplus"
+    assert [(m, tuple(A.shape), B) for m, A, B in seen] == [(mode, (96, 96), None)] * 6
+    # each sweep's operand is min(previous, previous (x) previous)
+    for (_, prev, _), (_, nxt, _) in zip(seen, seen[1:]):
+        assert torch.equal(nxt, torch.minimum(prev, qpath_matmul_ref(prev, prev, mode=mode)))

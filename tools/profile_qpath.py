@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""What the exact skip saves in the qpath kernel's logminplus mode, on one
-CUDA card.
+"""What the qpath kernel's exact skip, its minmax row skip and its split
+plan buy, on one CUDA card, at the shapes the builds give it.
 
-    python3 tools/profile_qpath.py [--seed 0] [--out FILE]
+    python3 tools/profile_qpath.py [--seed 0] [--baseline DIR] [--out FILE]
 
-Run from the root of the repo.  The sweep operands are those of the
-bench-config q=2 build (``chip_smoke.py`` phase 4: the manifold corpus,
-``proj_sample`` 512, six doubling sweeps of (512, 512) x (512, 512),
-recorded from a real ``InfinityIndex`` build) and the first and last of the
-2048^3 operands ``chip_smoke.py`` times (the ``fashion_like`` kNN graph).
-For each it reports, as one JSON line:
+Run from the root of the repo.  The operands are recorded from real
+builds, as ``chip_smoke.py`` records them: the six logminplus sweeps of the
+bench-config q=2 build ((512, 512) each), the six of the infinity
+retrieval's build ((1000, 1000)), the six minmax sweeps of the full-width
+build ((2048, 2048)), and the first and last of ``chip_smoke.py``'s fixed
+2048^3 logminplus operands (the ``fashion_like`` kNN graph).  For each
+sweep it prints one JSON line:
 
-- ``evaluated``: the share of (i, j, k) whose logaddexp the kernel
-  evaluates, from a counting variant of ``csrc/qpath.cu``;
-- ``pruned_ms`` / ``unpruned_ms``: the kernel as built, and a variant with
-  ``SKIP = false`` that evaluates every combine, each timed in the order
-  pruned, unpruned, then unpruned, pruned (both means kept);
-- ``bit_identical``: the pruned result equals the unpruned one bit for bit
-  (the script fails otherwise), and ``plain_max_abs_err`` against
-  ``kernels/qpath/ref.py``.
+- ``evaluated`` (logminplus): the share of (i, j, k) whose logaddexp the
+  kernel evaluates, from a counting variant of ``csrc/qpath.cu``;
+- ``ms``: the kernel as built and its variants, each timed in forward then
+  reverse order (both means kept): ``unpruned`` (``SKIP = false``: every
+  combine evaluated), ``waves_<w>`` (logminplus with
+  ``kernels/qpath/qpath.py:WAVES`` set to w: the k splits), ``no_row_skip``
+  (minmax without the row skip), and ``baseline`` where ``--baseline``
+  names a directory holding an earlier ``qpath.cu`` and its
+  ``common.cuh`` whose C entry is ``qpath_f32(A, B, C, m, kd, n, mode,
+  stream)`` (the first design's; e.g. that file's directory unpacked from
+  an earlier commit under ``build/``);
+- every variant's result is held bit for bit to the built kernel's (the
+  script fails otherwise, except the baseline, whose agreement is
+  reported), and ``plain_max_abs_err`` against ``kernels/qpath/ref.py``.
 
-The variants are built from copies of the source under
-``build/qpath_variants/``.  The line before the last is the card's name and
-power limit as ``nvidia-smi`` gives them; the last is one JSON object of
-every case.
+Then one ``build`` line per build: each variant's time summed over the
+build's sweeps (the first of its two means).  The variants are built from
+copies of the source under ``build/qpath_variants/``.  The line before the
+last is the card's name and power limit as ``nvidia-smi`` gives them; the
+last is one JSON object of every line.
 """
 from __future__ import annotations
 
@@ -39,10 +47,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-from chip_smoke import BENCH_N, BENCH_Q, NUM_HOPS, SUBSET, cuda_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BENCH_N, BENCH_Q, INF_INDEX, NUM_HOPS, SUBSET, _full_width_data, cuda_ms,
+    inf_candidates, recorded_sweeps,
+)
 
-#: name -> (old text, new text) edits of csrc/qpath.cu
 SKIP = "constexpr bool SKIP = true;"
+ROW_SKIP = ("__host__ __device__ constexpr bool row_skip(int mode) "
+            "{ return mode == MINMAX || pruned(mode); }")
 #: the counting variant's reader, appended to its source
 TAKE_COUNT = """
 extern "C" int qpath_evaluated_take(unsigned long long* out) {
@@ -52,9 +64,11 @@ extern "C" int qpath_evaluated_take(unsigned long long* out) {
   return static_cast<int>(err);
 }
 """
+#: name -> (old text, new text) edits of csrc/qpath.cu
 VARIANTS = {
-    "pruned": [],
+    "built": [],
     "unpruned": [(SKIP, "constexpr bool SKIP = false;")],
+    "no_row_skip": [(ROW_SKIP, ROW_SKIP.replace("mode == MINMAX || ", ""))],
     # the built kernel, counting the combines it evaluates
     "counting": [
         ("// The block's (m, n) tile over k",
@@ -69,12 +83,14 @@ VARIANTS = {
          "  const bool vec_out"),
     ],
 }
+WAVES = (1, 4, 8, 16)
+BASELINE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def build_variants(variants: dict) -> dict:
+def build_variants(variants: dict, baseline: str | None) -> dict:
     """Compile each variant's qpath.cu (with runtime.cu for the error
-    strings), all nvcc processes at once, and link one library each.
-    Returns name -> CDLL."""
+    strings), and the baseline's, all nvcc processes at once, and link one
+    library each.  Returns name -> CDLL."""
     from repro_torch.kernels import _build
 
     root = _build.BUILD_DIR / "qpath_variants"
@@ -86,18 +102,23 @@ def build_variants(variants: dict) -> dict:
     jobs = {"runtime": (runtime, subprocess.Popen(
         [nvcc, *_build.CFLAGS, "-c", str(_build.CSRC / "runtime.cu"), "-o", str(runtime)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))}
+    sources = {}
     for name, edits in variants.items():
         src = text
         for old, new in edits:
             if src.count(old) != 1:
                 raise SystemExit(f"variant {name}: {old!r} is not once in qpath.cu")
             src = src.replace(old, new)
-        if name == "counting":
-            src += TAKE_COUNT
+        sources[name] = (src + TAKE_COUNT if name == "counting" else src,
+                         _build.CSRC / "common.cuh")
+    if baseline:
+        sources["baseline"] = (open(os.path.join(baseline, "qpath.cu")).read(),
+                               os.path.join(baseline, "common.cuh"))
+    for name, (src, header) in sources.items():
         vdir = root / name
         vdir.mkdir()
         (vdir / "qpath.cu").write_text(src)
-        shutil.copy(_build.CSRC / "common.cuh", vdir)
+        shutil.copy(header, vdir / "common.cuh")
         obj = vdir / "qpath.o"
         jobs[name] = (obj, subprocess.Popen(
             [nvcc, *_build.CFLAGS, "-c", str(vdir / "qpath.cu"), "-o", str(obj)],
@@ -107,7 +128,7 @@ def build_variants(variants: dict) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed on {name}:\n{report}")
     libs = {}
-    for name in variants:
+    for name in sources:
         so = root / name / "lib.so"
         subprocess.run([nvcc, *_build.ARCH_FLAGS, "-shared", str(jobs[name][0]),
                         str(runtime), "-o", str(so)],
@@ -119,37 +140,42 @@ def build_variants(variants: dict) -> dict:
     return libs
 
 
-def bench_operands(seed: int) -> list:
-    """The logminplus operand of each sweep of the bench-config q=2 build,
-    recorded from a real build (the kernel computes the sweeps)."""
+def build_operands(seed: int) -> dict:
+    """Build -> the operands of its sweeps, recorded from real builds (the
+    kernel computes the sweeps): build name -> [(mode, A)]."""
+    import torch
+
+    from repro_torch import configs
     from repro_torch.core import index as index_lib
-    from repro_torch.core import qmetric
+    from repro_torch.core.search import IndexConfig, InfinityIndex
     from repro_torch.data import synthetic
 
-    seen = []
-    inner = qmetric.qpath_ops.qpath_matmul
-
-    def spy(A, B, *, mode, row_block=32):
-        if mode == "logminplus":
-            seen.append(A.clone())
-        return inner(A, B, mode=mode, row_block=row_block)
-
-    corpus = synthetic.make("manifold", BENCH_N + BENCH_Q, seed=seed)[:BENCH_N]
-    qmetric.qpath_ops.qpath_matmul = spy
-    try:
-        index_lib.build("infinity", corpus, {"q": 2.0, "proj_sample": 512,
-                                             "train_steps": 300}, device="cuda")
-    finally:
-        qmetric.qpath_ops.qpath_matmul = inner
-    if len(seen) != NUM_HOPS:
-        raise SystemExit(f"the bench build swept {len(seen)} times, not {NUM_HOPS}")
-    return seen
+    dev = torch.device("cuda")
+    builds = {
+        "bench-config build q=2": lambda: index_lib.build(
+            "infinity", synthetic.make("manifold", BENCH_N + BENCH_Q, seed=seed)[:BENCH_N],
+            {"q": 2.0, "proj_sample": 512, "train_steps": 300}, device=dev),
+        "infinity retrieval": lambda: InfinityIndex.build(
+            inf_candidates(configs.get("deepfm"), seed, dev), IndexConfig(**INF_INDEX),
+            device=dev),
+        "full-width build": lambda: index_lib.build(
+            "infinity", _full_width_data(seed)[0], {}, device=dev),
+    }
+    out = {}
+    for name, build in builds.items():
+        seen = []
+        with recorded_sweeps(seen):
+            build()
+        if len(seen) != NUM_HOPS or any(B is not None for _, _, B in seen):
+            raise SystemExit(f"{name}: recorded {len(seen)} sweeps, want {NUM_HOPS} squares")
+        out[name] = [(mode, A) for mode, A, _ in seen]
+    return out
 
 
 def smoke_operands(seed: int) -> list:
-    """chip_smoke.py's 2048^3 logminplus operands: the first sweep's (2 log
-    of the kNN-graph edge matrix of fashion_like S) and the last sweep's
-    (after five doublings, by the plain version)."""
+    """chip_smoke.py's fixed 2048^3 logminplus operands: the first sweep's
+    (2 log of the kNN-graph edge matrix of fashion_like S) and the last
+    sweep's (after five doublings, by the plain version)."""
     import torch
 
     from repro_torch.core import knn_graph as knn_lib
@@ -166,12 +192,14 @@ def smoke_operands(seed: int) -> list:
     first = M
     for _ in range(NUM_HOPS - 1):
         M = torch.minimum(M, qpath_matmul_ref(M, M, mode="logminplus"))
-    return [first, M]
+    return [("logminplus", first), ("logminplus", M)]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline", default=None,
+                    help="directory of an earlier qpath.cu and common.cuh to time beside")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)
 
@@ -182,52 +210,96 @@ def main(argv=None) -> int:
         return 2
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.qpath.qpath import qpath_matmul_cuda
+    from repro_torch.kernels.qpath import qpath as qpath_mod
     from repro_torch.kernels.qpath.ref import qpath_matmul_ref
 
     _build.build()
-    libs = build_variants(VARIANTS)
+    libs = build_variants(VARIANTS, args.baseline)
     built = _build._STATE["lib"]
     take = libs["counting"].qpath_evaluated_take
     take.argtypes = [ctypes.c_void_p]
     count = ctypes.c_ulonglong(0)
-    cases = [(f"bench-config q=2 sweep {t}", A) for t, A in enumerate(bench_operands(args.seed))]
-    first, last = smoke_operands(args.seed)
-    cases += [(f"fashion_like {SUBSET} first sweep", first),
-              (f"fashion_like {SUBSET} last sweep", last)]
+    waves0 = qpath_mod.WAVES["logminplus"]
+
+    def use(name: str, waves: int = waves0):
+        _build._STATE["lib"] = libs[name]
+        _build._RESIDENT.clear()
+        qpath_mod.WAVES["logminplus"] = waves
+
+    def baseline_call(A, mode):
+        fn = libs["baseline"].qpath_f32
+        fn.argtypes, fn.restype = BASELINE_ARGTYPES, ctypes.c_int
+        out = torch.empty_like(A)
+        m, kd = A.shape
+        err = fn(A.data_ptr(), A.data_ptr(), out.data_ptr(), m, kd, A.shape[1],
+                 qpath_mod.MODE_CODES[mode], _build.stream_handle(A.device))
+        if err:
+            raise SystemExit(f"baseline qpath_f32: CUDA error {err}")
+        return out
+
+    cases = [(name, t, mode, A) for name, ops in build_operands(args.seed).items()
+             for t, (mode, A) in enumerate(ops)]
+    cases += [(f"fashion_like {SUBSET} fixed", t, mode, A)
+              for t, (mode, A) in zip((0, NUM_HOPS - 1), smoke_operands(args.seed))]
     lines = []
-    for case, A in cases:
+    totals = {}
+    for build, t, mode, A in cases:
         n = A.shape[0]
-        call = (lambda: qpath_matmul_cuda(A, A, mode="logminplus"))
-        reps = 20 if n <= 1024 else 5
-        out = {}
-        for name in ("pruned", "unpruned", "counting"):
-            _build._STATE["lib"] = libs[name]
-            if name == "counting":
-                _build.check(take(ctypes.byref(count)), "qpath_evaluated_take")
-            out[name] = call()
+        calls = {"built": lambda: qpath_mod.qpath_matmul_cuda(A, A, mode=mode)}
+        setups = {"built": ("built",)}
+        if mode == "logminplus":
+            calls["unpruned"] = calls["built"]
+            setups["unpruned"] = ("unpruned",)
+            for w in WAVES:
+                if w != waves0:
+                    calls[f"waves_{w}"] = calls["built"]
+                    setups[f"waves_{w}"] = ("built", w)
+        if mode == "minmax":
+            calls["no_row_skip"] = calls["built"]
+            setups["no_row_skip"] = ("no_row_skip",)
+        if args.baseline:
+            calls["baseline"] = lambda: baseline_call(A, mode)
+            setups["baseline"] = ("built",)
+        outs = {}
+        for name, call in calls.items():
+            use(*setups[name])
+            outs[name] = call()
+        row = {"build": build, "sweep": t, "mode": mode, "shape": [n, n, n],
+               "finite_share": float(torch.isfinite(A).float().mean())}
+        if mode == "logminplus":
+            use("counting")
+            _build.check(take(ctypes.byref(count)), "qpath_evaluated_take")
+            outs["counting"] = calls["built"]()
             torch.cuda.synchronize()
-        _build.check(take(ctypes.byref(count)), "qpath_evaluated_take")
-        if not (torch.equal(out["pruned"], out["unpruned"])
-                and torch.equal(out["counting"], out["unpruned"])):
-            raise SystemExit(f"{case}: the pruned kernel is not bit-identical to the unpruned")
-        ref = qpath_matmul_ref(A, A, mode="logminplus")
+            _build.check(take(ctypes.byref(count)), "qpath_evaluated_take")
+            row["evaluated"] = count.value / float(n) ** 3
+        for name, out in outs.items():
+            if name != "baseline" and not torch.equal(out, outs["built"]):
+                raise SystemExit(f"{build} sweep {t}: {name} is not bit-identical to the "
+                                 "built kernel")
+        if args.baseline:
+            row["baseline_bit_identical"] = bool(torch.equal(outs["baseline"], outs["built"]))
+        ref = qpath_matmul_ref(A, A, mode=mode)
         fin = torch.isfinite(ref)
-        times = {"pruned": [], "unpruned": []}
-        for name in ("pruned", "unpruned", "unpruned", "pruned"):
-            _build._STATE["lib"] = libs[name]
-            times[name].append(cuda_ms(call, reps))
+        row["plain_max_abs_err"] = float((outs["built"][fin] - ref[fin]).abs().max())
+        reps = 20 if n <= 1024 else 5
+        order = list(calls) + list(reversed(calls))
+        times = {name: [] for name in calls}
+        for name in order:
+            use(*setups[name])
+            times[name].append(cuda_ms(calls[name], reps))
+        use("built")
         _build._STATE["lib"] = built
-        row = {
-            "case": f"logminplus {n}^3 {case}",
-            "finite_share": float(torch.isfinite(A).float().mean()),
-            "evaluated": count.value / float(n) ** 3,
-            "pruned_ms": times["pruned"], "unpruned_ms": times["unpruned"],
-            "bit_identical": True,
-            "plain_max_abs_err": float((out["pruned"][fin] - ref[fin]).abs().max()),
-        }
+        row["ms"] = times
         lines.append(row)
         print(json.dumps(row), flush=True)
+        acc = totals.setdefault(build, {"build": build, "mode": mode, "sweeps": 0, "ms": {}})
+        acc["sweeps"] += 1
+        for name, (first, _) in times.items():
+            acc["ms"][name] = acc["ms"].get(name, 0.0) + first
+    for acc in totals.values():
+        lines.append(acc)
+        print(json.dumps(acc), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -237,7 +309,7 @@ def main(argv=None) -> int:
                 f.write(json.dumps(row) + "\n")
             f.write(smi + "\n")
     print(smi)
-    print(json.dumps({"cases": lines}))
+    print(json.dumps({"lines": lines}))
     return 0
 
 
