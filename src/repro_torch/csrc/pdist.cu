@@ -49,8 +49,8 @@
 //   order is bit-identical to the plain version.
 //
 // Times on an H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, D on the
-// 2048 x 784 projection subset): euclidean 0.1995 ms (torch.cdist 0.2163,
-// bound 0.098), manhattan 0.2972 ms, chebyshev 0.2937 ms (bound 0.196).
+// 2048 x 784 projection subset): euclidean 0.2012 ms (torch.cdist 0.2150,
+// bound 0.098), manhattan 0.2971 ms, chebyshev 0.2938 ms (bound 0.196).
 // PERF.md has every row.
 #include <cuda_runtime.h>
 

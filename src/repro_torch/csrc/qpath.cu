@@ -12,8 +12,10 @@
 // the combine (or, in logminplus, the max that decides a skip) and the
 // min — so 2*m*n*kd instructions (2048^3: 17.2 G, ~0.51 ms at 33.5 T
 // instructions/s, the 67 TFLOP/s f32 peak counted one instruction per
-// lane; whether FMNMX, the min and max, runs at that rate is open, see
-// PERF.md).  Evaluating every logaddexp would cost exp and log1p on the
+// lane).  minmax's two are both FMNMX (min, max), and its loop, the same
+// as minplus's, reads ~1.15 ms at 2048^3 against minplus's ~0.74: FMNMX
+// seems to issue at half the FADD rate, see PERF.md.  Evaluating every
+// logaddexp would cost exp and log1p on the
 // special-function units (~4.1 ms at 2048^3); the skip below shows that
 // work is not needed.  Traffic is (m*kd + kd*n + m*n) words, ~50 MB at
 // 2048^3: far below either.
@@ -42,10 +44,6 @@
 //   the k range, and 0 is a real value in every mode, so the range's last
 //   stage overwrites its k tail with +inf behind one more barrier.  Rows
 //   past m and columns past n are never written, so their fill is moot.
-// - Row skip (minmax, logminplus): combine(a, b) >= max(a, b) >= a, so a
-//   row whose a is at least the largest minimum of its row (taken per
-//   stage, or per fold below) cannot change and is passed over; on the
-//   projection's sparse operands most rows of a step are +inf.
 // - Splits: kernels/qpath/qpath.py:split_plan cuts k into ranges of whole
 //   stages where the output tiles are few (the bench config's 512^3
 //   sweeps), and, for logminplus, finer still, since its work per tile
@@ -57,11 +55,12 @@
 //   log1p(exp(-|a - b|)) is >= max(a, b) (the log1p term is >= 0 and a
 //   round-to-nearest sum of x and a non-negative number is >= x; the a + b
 //   branch for a - b NaN equals max(a, b) or is NaN, which fminf ignores),
-//   so a triple with max(a, b) >= the running minimum cannot lower it.  The
-//   SFUs cost a warp instruction whatever its active mask, so a per-lane
-//   branch would save nothing: each thread marks, per step of k, the
-//   elements of its tile whose max is below their minimum (a 16-bit mask)
-//   and evaluates only those, in a loop over the set bits, so the warp
+//   so a triple with max(a, b) >= the running minimum cannot lower it, and
+//   a row whose a is at least every minimum of the row is passed over
+//   whole.  The SFUs cost a warp instruction whatever its active mask, so
+//   a per-lane branch would save nothing: each thread marks, per step of
+//   k, the elements of its tile whose max is below their minimum (a 16-bit
+//   mask) and evaluates only those, in a loop over the set bits, so the warp
 //   pays for the most that one lane needs.  An evaluated value lowers the
 //   element's slot in shared memory (pend: a register tile cannot be
 //   indexed at run time), and the registers take the slots' minima after
@@ -77,12 +76,19 @@
 //   when a - b is NaN (both infinite with the same sign) the result is
 //   a + b, which keeps (-inf, -inf) -> -inf on the diagonal of the
 //   log-domain edge matrix.
+// - minmax has no skip: the same row skip (max(a, b) >= a) read 0.71
+//   against 1.16 ms on the full-width build's sparse first sweep but 1.26
+//   to 1.39 against 1.15 on its dense later ones, 7.02 against 6.94 ms over
+//   the build's six (tools/profile_qpath.py, NVIDIA H100 80GB HBM3,
+//   700 W), so minmax runs minplus's plain loop.
 //
-// Times on an H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py, 2048^3,
-// the first / last sweep's operand): minmax 0.6762 / 0.8761 ms, minplus
-// 0.7379 / 0.7395 ms, logminplus 1.466 / 3.725 ms with 0.027 % / 1.37 %
-// of the combines evaluated (tools/profile_qpath.py).  PERF.md has every
-// row.
+// Times on an H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): on the
+// fixed 2048^3 first / last sweep's operand minmax 1.148 / 1.152 ms,
+// minplus 0.7320 / 0.7479 ms, logminplus 1.455 / 3.744 ms with 0.027 % /
+// 1.37 % of the combines evaluated (tools/profile_qpath.py); on the sweeps
+// the builds run, a mean of 1.161 ms (minmax, full width, 2048^3), 0.300
+// ms (logminplus, bench config q=2, 512^3) and 1.841 ms (logminplus,
+// infinity retrieval, 1000^3).  PERF.md has every row.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -111,10 +117,6 @@ __host__ __device__ constexpr bool pruned(int mode) { return mode == LOGMINPLUS 
 // takes 4 x 4 tiles: more blocks per SM to hide the latency of its
 // exp / log1p chains.
 __host__ __device__ constexpr int tile(int mode) { return mode == LOGMINPLUS ? 4 : 8; }
-
-// Modes whose combine is >= max(a, b), so that a row whose a is at least
-// every minimum of the row is skipped whole.
-__host__ __device__ constexpr bool row_skip(int mode) { return mode == MINMAX || pruned(mode); }
 
 template <int MODE>
 constexpr size_t smem_bytes() {
@@ -203,6 +205,9 @@ __global__ void __launch_bounds__(THREADS, MODE == LOGMINPLUS ? 3 : 2)
   }
 
   float acc[TM][TN];
+  // logminplus: the largest minimum of each row, as of the last fold
+  // below; where a >= rmax, max(a, b) >= every minimum of the row and the
+  // whole row is skipped (a stale, i.e. higher, rmax only skips less)
   float rmax[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -236,17 +241,6 @@ __global__ void __launch_bounds__(THREADS, MODE == LOGMINPLUS ? 3 : 2)
     }
     const float* ap = as + tr * LDA;
     const float* bp = bs + tc;
-    // the largest minimum of each row (minmax: at the stage's start): where
-    // a >= rmax, max(a, b) >= every minimum of the row and nothing in it
-    // can drop (a stale, i.e. higher, rmax only skips less)
-    if constexpr (MODE == MINMAX) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        rmax[i] = acc[i][0];
-#pragma unroll
-        for (int j = 1; j < TN; ++j) rmax[i] = fmaxf(rmax[i], acc[i][j]);
-      }
-    }
 
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 4) {
@@ -297,14 +291,6 @@ __global__ void __launch_bounds__(THREADS, MODE == LOGMINPLUS ? 3 : 2)
               float* p = pend + e * THREADS + tid;
               *p = fminf(*p, c);
             }
-          }
-        } else if constexpr (row_skip(MODE)) {
-#pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            if (a[i] >= rmax[i]) continue;
-#pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] = fminf(acc[i][j], combine<MODE>(a[i], b[j]));
           }
         } else {
 #pragma unroll

@@ -19,7 +19,10 @@ STAGE_K = 32
 MIN_SPLIT_K = 2 * STAGE_K
 #: blocks a plan may give each slot of the card: logminplus's work per block
 #: follows its data (the skip; clustered or banded graphs put most of it in
-#: a few tiles), so it cuts k finer to spread that work over the SMs
+#: a few tiles), so it cuts k finer to spread that work over the SMs.  8
+#: read best or within 1 % of best among 1, 4, 8 and 16 on the builds'
+#: 512^3 and 1000^3 sweeps and the 2048^3 operands (tools/profile_qpath.py,
+#: NVIDIA H100 80GB HBM3, 700 W; PERF.md)
 WAVES = {"minplus": 1, "minmax": 1, "logminplus": 8}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]

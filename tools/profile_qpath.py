@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What the qpath kernel's exact skip, its minmax row skip and its split
-plan buy, on one CUDA card, at the shapes the builds give it.
+"""What the qpath kernel's exact skip and its split plan buy, on one CUDA
+card, at the shapes the builds give it.
 
     python3 tools/profile_qpath.py [--seed 0] [--baseline DIR] [--out FILE]
 
@@ -17,12 +17,11 @@ sweep it prints one JSON line:
 - ``ms``: the kernel as built and its variants, each timed in forward then
   reverse order (both means kept): ``unpruned`` (``SKIP = false``: every
   combine evaluated), ``waves_<w>`` (logminplus with
-  ``kernels/qpath/qpath.py:WAVES`` set to w: the k splits), ``no_row_skip``
-  (minmax without the row skip), and ``baseline`` where ``--baseline``
-  names a directory holding an earlier ``qpath.cu`` and its
-  ``common.cuh`` whose C entry is ``qpath_f32(A, B, C, m, kd, n, mode,
-  stream)`` (the first design's; e.g. that file's directory unpacked from
-  an earlier commit under ``build/``);
+  ``kernels/qpath/qpath.py:WAVES`` set to w: the k splits), and
+  ``baseline`` where ``--baseline`` names a directory holding an earlier
+  ``qpath.cu`` and its ``common.cuh`` whose C entry is ``qpath_f32(A, B,
+  C, m, kd, n, mode, stream)`` (the first design's; e.g. that file's
+  directory unpacked from an earlier commit under ``build/``);
 - every variant's result is held bit for bit to the built kernel's (the
   script fails otherwise, except the baseline, whose agreement is
   reported), and ``plain_max_abs_err`` against ``kernels/qpath/ref.py``.
@@ -53,8 +52,6 @@ from chip_smoke import (  # noqa: E402
 )
 
 SKIP = "constexpr bool SKIP = true;"
-ROW_SKIP = ("__host__ __device__ constexpr bool row_skip(int mode) "
-            "{ return mode == MINMAX || pruned(mode); }")
 #: the counting variant's reader, appended to its source
 TAKE_COUNT = """
 extern "C" int qpath_evaluated_take(unsigned long long* out) {
@@ -68,7 +65,6 @@ extern "C" int qpath_evaluated_take(unsigned long long* out) {
 VARIANTS = {
     "built": [],
     "unpruned": [(SKIP, "constexpr bool SKIP = false;")],
-    "no_row_skip": [(ROW_SKIP, ROW_SKIP.replace("mode == MINMAX || ", ""))],
     # the built kernel, counting the combines it evaluates
     "counting": [
         ("// The block's (m, n) tile over k",
@@ -254,9 +250,6 @@ def main(argv=None) -> int:
                 if w != waves0:
                     calls[f"waves_{w}"] = calls["built"]
                     setups[f"waves_{w}"] = ("built", w)
-        if mode == "minmax":
-            calls["no_row_skip"] = calls["built"]
-            setups["no_row_skip"] = ("no_row_skip",)
         if args.baseline:
             calls["baseline"] = lambda: baseline_call(A, mode)
             setups["baseline"] = ("built",)
