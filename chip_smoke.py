@@ -23,12 +23,16 @@ Phases, in order; any failure exits non-zero:
    one brute batch (512x60000x784: euclidean, manhattan, int8); the
    embedding bag at DeepFM's shapes (the (V, 1) first-order table at
    serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
-   retrieval_cand and the infinity retrieval, D = 1 / 10 sum / mean rows
-   with padding ids and weights at the serve_bulk batch, and the D = 10
-   table as bf16 there).  Each prints its error, id agreement, the
-   kernel's time (CUDA events after warm-up), the plain version's time, the
-   time of one PyTorch call that computes the same function where there is
-   one, and the bound (the least time the card could take).
+   retrieval_cand and the infinity retrieval, the launch floor (one id),
+   D = 1 / 10 sum / mean rows with padding ids and weights at the
+   serve_bulk batch, and the D = 10 table as bf16 and f16 there), each
+   bit-identical to its plain version, with its launch plan and instance.
+   Each prints its error, id agreement, the kernel's time (CUDA events
+   after warm-up; the bag also in a CUDA graph, without the host's calls
+   between launches), the plain version's time, the time of one PyTorch
+   call that computes the same function where there is one (for the
+   merges, ``torch.topk`` over the lists and a gather of their ids), and
+   the bound (the least time the card could take).
 3. The main path at full width: an ``InfinityIndex`` with ``IndexConfig()``
    defaults over 60000 x 784 ``fashion_like`` vectors (the shape of
    Fashion-MNIST), 10000 queries served in batches of 512 (beam), one batch
@@ -154,11 +158,11 @@ NO_CHEBYSHEV = "none: no chebyshev window on the main path"
 WIDE_K = 600
 NO_WIDE_K = "none: no engine asks for k > 512 on the main path"
 # the embedding bag and its plain version round the same products and sums
-# in the same order: 0 is expected
-BAG_ATOL = 1e-6
+# in the same order: every bag row must be bit-identical (torch.equal)
 NO_BAG_EXTRAS = "none: served ids carry no padding and no weights"
 NO_BAG_D10_BULK = "none: no window pools embedding rows at the serve_bulk batch"
-NO_BAG_BF16 = "none: no served config declares a bf16 table"
+NO_BAG_HALF = "none: no served config declares a bf16 or f16 table"
+NO_BAG_FLOOR = "none: the launch floor, a 1x1 bag; no window runs it"
 # recsys logits (or retrieval scores) of the kernel path against the plain
 # bag's: the same weights and ids, bit-identical bags, so 0 is expected;
 # the stated tolerance is the CPU parity tests'
@@ -259,6 +263,34 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph, replayed once to warm up and once timed by CUDA events, so no
+    host work sits between the launches (``cuda_ms`` times the host's
+    calls too, which bound a kernel of a few microseconds)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def close_matmul(out, ref, rtol=MATMUL_RTOL, atol=MATMUL_ATOL):
     """max |out - ref| and whether every entry is within the tolerance
     (by default the matmul family's, rtol 1e-5, atol 5e-4); infinities
@@ -307,7 +339,7 @@ def _ptxas_summary(report: str) -> dict:
             name = m.group(1)
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
                           "merge_kernel", "sqnorm_kernel", "qpath_kernel",
-                          "min_splits_kernel", "bag_kernel"):
+                          "min_splits_kernel", "bag_warp_kernel", "bag_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
                     args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
@@ -550,7 +582,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
             rows.append(_qpath_row(mode, sweep, A))
             log("kernel " + json.dumps(rows[-1]))
         del first, last
-    rows += _bag_rows(seed)
+    rows += _bag_rows(seed, ptxas)
     return rows
 
 
@@ -675,7 +707,9 @@ def _merge_row(name: str, replaces: str, path: str, counter: str, plan, k: int,
     the C entry ``topk_merge``) alone, on the lists of one serve batch:
     ``split_topk(a, b)`` is the plain version's top k of columns [a, b).
     Held bit for bit to its plain version (``ref.merge_splits_ref``); its
-    launches are its scan's, one merge per counted call."""
+    launches are its scan's, one merge per counted call.  Its library time
+    is ``torch.topk`` over each row's lists and a gather of the ids: the
+    same k distances (checked equal), ties in another order."""
     import ctypes
 
     import torch
@@ -702,6 +736,15 @@ def _merge_row(name: str, replaces: str, path: str, counter: str, plan, k: int,
     rd, ri = merge_splits_ref(part_d, part_i, k)
     if not (torch.equal(out_d, rd) and torch.equal(out_i, ri)):
         fail(f"{name} merge disagrees with its plain version")
+
+    def library():
+        # the same merge by one library selection over the row's lists and
+        # a gather of the ids (ties in another order; distances equal)
+        vals, pos = torch.topk(part_d.view(m, -1), k, dim=1, largest=False)
+        return vals, torch.gather(part_i.view(m, -1), 1, pos)
+
+    if not torch.equal(library()[0], rd):
+        fail(f"{name} merge: torch.topk's distances differ from the plain version's")
     # What the merge reads on these lists: each list's head, then the next
     # entry of a list each time one of its entries is taken (while it has
     # one): S + sum_s min(taken_s, k - 1) entries a row, 8 bytes each.  An
@@ -718,7 +761,7 @@ def _merge_row(name: str, replaces: str, path: str, counter: str, plan, k: int,
         "max_abs_err": 0.0, "splits": S,
         "ms": cuda_ms(merge, 20),
         "plain_ms": cuda_ms(lambda: merge_splits_ref(part_d, part_i, k), 20),
-        "library_ms": None,
+        "library_ms": cuda_ms(library, 20),
         "bound": _bound(ops=m * k * S, rate=F32_INSTR, nbytes=8 * reads + 8 * m * k),
     }
     log("kernel " + json.dumps(row))
@@ -747,20 +790,18 @@ def _bag_bound(ids, D: int, weighted: bool, elem: int = 4) -> dict:
     return bound
 
 
-def _bag_rows(seed: int) -> list[dict]:
-    """The embedding bag at DeepFM's full-width shapes: its (V, 1) and
-    (V, embed_dim) tables (random, scale 0.01 as declared) and ids from
-    ``recsys_batch`` as phase 7 serves them, plus padding / weight / mean
-    rows at the serve_bulk batch."""
+def bag_inputs(seed: int):
+    """DeepFM's full-width (V, 1) and (V, embed_dim) tables (random, scale
+    0.01 as declared; the latter also as bf16 and f16) and the bag cases
+    phase 2 runs, with ids from ``recsys_batch`` as phase 7 serves them:
+    (tables, [(case, table key, ids, weights, combine, window)]), window
+    None where no window runs the case."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch import configs
     from repro_torch.configs.base import RECSYS_SHAPES
     from repro_torch.data.tokens import recsys_batch
-    from repro_torch.kernels.bag.bag import embedding_bag_cuda
-    from repro_torch.kernels.bag.ref import effective_weights, embedding_bag_ref
     from repro_torch.models import recsys as recsys_lib
 
     dev = torch.device(DEVICE)
@@ -770,8 +811,9 @@ def _bag_rows(seed: int) -> list[dict]:
     g = torch.Generator(device=dev).manual_seed(seed)
     tables = {D: torch.randn((V, D), generator=g, device=dev).mul_(0.01)
               for D in (1, cfg.embed_dim)}
-    # the embedding table as bf16, read by the kernel in its own dtype
+    # the embedding table as bf16 and f16, read by the kernel in its own dtype
     tables["bf16"] = tables[cfg.embed_dim].to(torch.bfloat16)
+    tables["f16"] = tables[cfg.embed_dim].to(torch.float16)
     offsets = recsys_lib.field_offsets(cfg, dev)
 
     def flat(step: int, batch: int):
@@ -786,7 +828,7 @@ def _bag_rows(seed: int) -> list[dict]:
     w = torch.as_tensor(rng.uniform(0.5, 1.5, size=bulk.shape).astype(np.float32),
                         device=dev)
     B_bulk, E = bulk.shape[0], cfg.embed_dim
-    cases = (
+    return tables, [
         ("first-order term, DeepFM serve_bulk", 1, bulk, None, "sum", "deepfm serve_bulk"),
         ("first-order term, DeepFM serve_p99", 1, flat(0, sizes["serve_p99"]), None,
          "sum", "deepfm serve_p99"),
@@ -794,14 +836,44 @@ def _bag_rows(seed: int) -> list[dict]:
          None, "sum", "deepfm retrieval_cand"),
         ("user embeddings, infinity retrieval", E, flat(1, INF_USERS), None, "sum",
          "infinity retrieval"),
+        ("launch floor, one id", 1, bulk[:1, :1], None, "sum", None),
         (f"pooled embeddings at the serve_bulk batch {B_bulk}", E, bulk, None, "sum", None),
         (f"pooled embeddings, bf16 table, at the serve_bulk batch {B_bulk}", "bf16", bulk,
+         None, "sum", None),
+        (f"pooled embeddings, f16 table, at the serve_bulk batch {B_bulk}", "f16", bulk,
          None, "sum", None),
         ("10 % padding ids, weights, sum", 1, padded, w, "sum", None),
         ("10 % padding ids, weights, sum", E, padded, w, "sum", None),
         ("10 % padding ids, weights, mean", 1, padded, w, "mean", None),
         ("10 % padding ids, weights, mean", E, padded, w, "mean", None),
+    ]
+
+
+def _bag_idle(key, ids, wts) -> str:
+    if ids.numel() == 1:
+        return NO_BAG_FLOOR
+    if key in ("bf16", "f16"):
+        return NO_BAG_HALF
+    return NO_BAG_D10_BULK if wts is None else NO_BAG_EXTRAS
+
+
+def _bag_rows(seed: int, ptxas: dict) -> list[dict]:
+    """The embedding bag at DeepFM's full-width shapes (``bag_inputs``):
+    each row bit-identical to its plain version (``torch.equal``), with the
+    launch plan it ran, its blocks, and its instance's registers, shared
+    memory and spill bytes; ``graph_ms`` is the kernel's device time per
+    launch with no host work between launches (a CUDA graph of the same
+    calls), where ``ms`` times back-to-back calls of the wrapper."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bag.bag import embedding_bag_cuda, launch_plan
+    from repro_torch.kernels.bag.ref import (
+        TABLE_DTYPES, effective_weights, embedding_bag_ref,
     )
+
+    tables, cases = bag_inputs(seed)
+    sms = torch.cuda.get_device_properties(DEVICE).multi_processor_count
     rows = []
     for case, key, ids, wts, combine, path in cases:
         table = tables[key]
@@ -810,10 +882,12 @@ def _bag_rows(seed: int) -> list[dict]:
         out = embedding_bag_cuda(table, ids, wts, combine=combine)
         ref = embedding_bag_ref(table, ids, wts, combine=combine)
         err = float((out - ref).abs().max())
-        if not (bool(torch.isfinite(out).all()) and err <= BAG_ATOL):
-            fail(f"bag {case} D={D} disagrees with its plain version (max err {err})")
+        if not torch.equal(out, ref):
+            fail(f"bag {case} D={D} is not bit-identical to its plain version "
+                 f"(max err {err})")
         library_ms = None
-        # F.embedding_bag on a bf16 table sums in bf16: not this function
+        # F.embedding_bag on a bf16 / f16 table sums in that dtype: not this
+        # function
         if combine == "sum" and table.dtype == torch.float32:
             # the same function by PyTorch's own bag: the padding ids clamped
             # and their weights zeroed
@@ -825,23 +899,31 @@ def _bag_rows(seed: int) -> list[dict]:
                 fail(f"F.embedding_bag disagrees on {case} D={D}")
             library_ms = cuda_ms(
                 lambda: F.embedding_bag(safe, table, mode="sum", per_sample_weights=pw), 20)
+        plan = launch_plan(B, S, D, sms, weighted=wts is not None)
+        code = TABLE_DTYPES.index(table.dtype)
+        instance = (f"bag_warp_kernel<{code}>" if plan.warp else
+                    f"bag_kernel<{code},{plan.chunk}>")
         reps = 20 if B * S < 10 ** 6 else 10
         rows.append({
             "name": "bag", "case": f"{case} {B}x{S} D={D} {combine}",
-            "path": path, "idle": None if path else (
-                NO_BAG_BF16 if key == "bf16" else
-                NO_BAG_D10_BULK if wts is None else NO_BAG_EXTRAS),
+            "path": path, "idle": None if path else _bag_idle(key, ids, wts),
             "counter": "bag", "source": "src/repro_torch/csrc/bag.cu",
             "replaces": "src/repro/kernels/bag/bag.py:30",
             "max_abs_err": err,
             "ms": cuda_ms(lambda: embedding_bag_cuda(table, ids, wts, combine=combine), reps),
+            "graph_ms": graph_ms(lambda: embedding_bag_cuda(table, ids, wts, combine=combine),
+                                 reps),
             "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, wts, combine=combine),
                                 reps),
             "library_ms": library_ms,
             "bound": _bag_bound(ids, D, wts is not None, table.element_size()),
+            "plan": {k: getattr(plan, k) for k in ("threads", "bags", "chunk", "window",
+                                                   "warp")},
+            "blocks": -(-B // plan.bags), "dynamic_smem_bytes": plan.smem_bytes,
+            "instance": instance, **ptxas[instance],
         })
         log("kernel " + json.dumps(rows[-1]))
-    del tables
+    del tables, cases
     gc.collect()
     torch.cuda.empty_cache()
     return rows

@@ -1,10 +1,10 @@
-// Shared by the distance kernels (pdist.cu, topk.cu, topk_int8.cu) and the
-// q-path sweep (qpath.cu): metric codes, the fused epilogue that turns the
-// f32 cross term and the two squared norms into a distance — the
-// arithmetic of kernels/pdist/ref.py and of the TPU kernels' epilogues
-// (src/repro/kernels/pdist/pdist.py:_matmul_kernel) — the cp.async copies
-// of the tiled kernels, and the streaming top-k selection of the fused
-// scans.
+// Shared by the distance kernels (pdist.cu, topk.cu, topk_int8.cu), the
+// q-path sweep (qpath.cu) and the embedding bag (bag.cu): metric codes, the
+// fused epilogue that turns the f32 cross term and the two squared norms
+// into a distance — the arithmetic of kernels/pdist/ref.py and of the TPU
+// kernels' epilogues (src/repro/kernels/pdist/pdist.py:_matmul_kernel) —
+// the cp.async copies of the tiled kernels and the bag, and the streaming
+// top-k selection of the fused scans.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,7 +55,7 @@ __device__ __forceinline__ float accumulate(float acc, float x, float y) {
 }
 
 // ---------------------------------------------------------------------------
-// global -> shared copies by cp.async (topk.cu, pdist.cu, qpath.cu)
+// global -> shared copies by cp.async (topk.cu, pdist.cu, qpath.cu, bag.cu)
 // ---------------------------------------------------------------------------
 
 // 16 bytes, or 16 zero bytes when !full (src is then not read).

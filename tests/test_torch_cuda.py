@@ -9,9 +9,9 @@ chebyshev bit-identical (a max of exact differences); the int8 kernel
 bit-identical, distances and ids (its int32 cross term is exact and its
 epilogue rounds as the plain version does); f32 ids identical except on
 near ties; minmax and minplus bit-identical; logminplus atol 1e-5; the
-embedding bag atol 1e-6 (the kernel and its plain version round the same
-products and sums in the same order, so 0 is expected); recsys logits
-against the CPU rtol / atol 1e-5.
+embedding bag bit-identical (``torch.equal``: the kernel and its plain
+version round the same products and sums in the same order); recsys
+logits against the CPU rtol / atol 1e-5.
 """
 import math
 
@@ -25,6 +25,7 @@ from repro_torch.core import qmetric  # noqa: E402
 from repro_torch.core import quant as quant_lib  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.bag import bag as bag_mod  # noqa: E402
 from repro_torch.kernels.bag.bag import embedding_bag_cuda  # noqa: E402
 from repro_torch.kernels.bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.pdist.pdist import pdist_cuda  # noqa: E402
@@ -67,7 +68,8 @@ def _normal(shape, seed, dev):
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
-                 "min_splits_kernel", "bag_kernel", "merge_kernel", "sqnorm_kernel"):
+                 "min_splits_kernel", "bag_kernel", "bag_warp_kernel", "merge_kernel",
+                 "sqnorm_kernel"):
         assert name in info["ptxas"]
 
 
@@ -564,7 +566,7 @@ def test_bag_kernel_matches_plain(cuda, D, combine, weighted):
     assert _build.launches()["bag"] == before + 1
     ref = embedding_bag_ref(table, ids, w, combine=combine)
     assert out.shape == (B, D) and out.dtype == torch.float32
-    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-6)
+    assert torch.equal(out, ref)
     assert (out[5] == 0).all()
     # int64 ids take the same path
     assert torch.equal(embedding_bag_cuda(table, ids.long(), w, combine=combine), out)
@@ -595,14 +597,94 @@ def test_bag_kernel_edges(cuda):
     empty = embedding_bag_cuda(table, torch.zeros((0, 4), dtype=torch.int32, device=cuda))
     assert empty.shape == (0, 3)
     one = torch.tensor([[2, -1, 7]], dtype=torch.int32, device=cuda)
-    np.testing.assert_allclose(embedding_bag_cuda(table, one).cpu().numpy(),
-                               (table[2] + table[7])[None].cpu().numpy(), atol=1e-6)
+    assert torch.equal(embedding_bag_cuda(table, one), (table[2] + table[7])[None])
     table[0] = math.inf  # padding still forms 0 * row 0
     assert torch.isnan(embedding_bag_cuda(table, one)).all()
     with pytest.raises(ValueError, match="f32, bf16 or f16 table"):
         embedding_bag_cuda(table.to(torch.int32), one)
     with pytest.raises(ValueError, match="CUDA tensors"):
         embedding_bag_cuda(table, one.cpu())
+
+
+def _bag_case(dev, B, S, D, seed, pad=0.1, weighted=True, V=5000):
+    rng = np.random.default_rng(seed)
+    table = torch.as_tensor(rng.normal(size=(V, D)).astype(np.float32), device=dev)
+    ids_np = rng.integers(0, V, size=(B, S)).astype(np.int32)
+    ids_np[rng.random((B, S)) < pad] = -1
+    ids = torch.as_tensor(ids_np, device=dev)
+    w = (torch.as_tensor(rng.uniform(0.5, 1.5, size=(B, S)).astype(np.float32), device=dev)
+         if weighted else None)
+    return table, ids, w
+
+
+# (B, S, D): B not a multiple of the tile (the thread path's bags: 256 at
+# B = 262145 and D = 1, 3 at D = 10 and B = 52), S = 1, 7 and 100, B * D
+# under one warp, and both paths (launch_plan takes the warp path at
+# (33, 39, 1), (700, 7, 1), (1, 1, 1) and (2, 5, 3))
+BAG_EDGE_SHAPES = [(33, 39, 1), (262145, 39, 1), (52, 39, 10), (700, 1, 10), (700, 7, 1),
+                   (300, 100, 16), (3, 39, 10), (1, 1, 1), (2, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", BAG_EDGE_SHAPES)
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_kernel_edge_shapes(cuda, shape, combine, weighted):
+    B, S, D = shape
+    table, ids, w = _bag_case(cuda, B, S, D, seed=sum(shape), weighted=weighted)
+    out = embedding_bag_cuda(table, ids, w, combine=combine)
+    assert torch.equal(out, embedding_bag_ref(table, ids, w, combine=combine))
+
+
+@pytest.mark.parametrize("chunk", bag_mod.CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_bag_kernel_every_instance(cuda, chunk, dtype):
+    """Each instanced chunk, forced through the plan, at blocks of 32 and
+    256 threads, with more outputs than threads (two passes) and with S cut
+    into windows (one bag a block), and the warp path at 1, 3 and 8 warps a
+    block: all bit-identical to the plain version."""
+    B, S, D = 300, 39, 10
+    table, ids, w = _bag_case(cuda, B, S, D, seed=chunk)
+    table = table.to(dtype)
+    ref = embedding_bag_ref(table, ids, w, combine="mean")
+    plans = [bag_mod.BagPlan(threads, bags, chunk, window, 0)
+             for threads, bags, window in ((32, 3, S), (256, 25, S), (32, 4, S), (32, 1, 9),
+                                           (32, 1, 16))]
+    plans += [bag_mod.BagPlan(32 * warps, warps, S, S, 0, True) for warps in (1, 3, 8)]
+    for plan in plans:
+        out = embedding_bag_cuda(table, ids, w, combine="mean", plan=plan)
+        assert torch.equal(out, ref), plan
+    with pytest.raises(RuntimeError, match="bag_f32"):
+        embedding_bag_cuda(table, ids, w, plan=bag_mod.BagPlan(32, 3, chunk + 1, S, 0))
+
+
+@pytest.mark.parametrize("D", [1, 10])
+def test_bag_kernel_unaligned_row_slices(cuda, D):
+    """ids and weights as row-slice views whose base is not 16-byte
+    aligned (S = 39: a row is 156 bytes): the staging copies start
+    anywhere."""
+    table, ids, w = _bag_case(cuda, 600, 39, D, seed=D)
+    for first in (1, 2, 3, 5):
+        sub, sw = ids[first:], w[first:]
+        assert sub.data_ptr() % 16 != 0 and sub.is_contiguous()
+        out = embedding_bag_cuda(table, sub, sw, combine="sum")
+        assert torch.equal(out, embedding_bag_ref(table, sub, sw, combine="sum"))
+        assert torch.equal(out, embedding_bag_cuda(table, sub.clone(), sw.clone()))
+
+
+@pytest.mark.parametrize("shape", [(512, 39, 1), (262144, 39, 1), (1, 39, 10), (32, 39, 10)])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_bag_kernel_padding_at_deepfm_shapes(cuda, shape, combine):
+    """All-padding and partly padded bags at phase 7's shapes (serve_p99,
+    serve_bulk, retrieval_cand, the infinity retrieval): an all-padding bag
+    is 0 under both combines, and every bag equals the plain version."""
+    B, S, D = shape
+    table, ids, w = _bag_case(cuda, B, S, D, seed=B + D, pad=0.3, V=100000)
+    ids[0] = -1
+    ids[B // 2, S // 2:] = -1
+    for wts in (None, w):
+        out = embedding_bag_cuda(table, ids, wts, combine=combine)
+        assert torch.equal(out, embedding_bag_ref(table, ids, wts, combine=combine))
+        assert (out[0] == 0).all()
 
 
 @pytest.mark.parametrize("arch", ["fm", "deepfm", "xdeepfm", "autoint"])
