@@ -7,6 +7,10 @@ both packages can be held to one index:
 
 * ``index_from_jax_state`` — ``InfinityIndex`` (X, Z, Phi, VP tree);
 * ``brute_from_jax_state`` — ``BruteIndex``;
+* ``ivf_flat_from_jax_state``, ``ivf_pq_from_jax_state``,
+  ``nsw_from_jax_state`` — ``IVFFlat``, ``IVFPQ``, ``NSWGraph`` (the
+  k-means centroids, lists, PQ codes and graph as JAX built them);
+* ``attrs_from_jax_state`` — ``AttributeStore`` (columns and vocabularies);
 * ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
   the squared norms are recomputed, as every store derives them);
 * ``recsys_params_from_jax`` — ``RecsysModel`` from a JAX recsys params
@@ -19,9 +23,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.core import attrs as attrs_lib
 from repro_torch.core import embedding as embed_lib
 from repro_torch.core import quant as quant_lib
-from repro_torch.core.baselines import BruteIndex
+from repro_torch.core.baselines import IVFPQ, BruteIndex, IVFFlat, NSWGraph
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
@@ -79,6 +84,34 @@ def brute_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], 
     """``arrays``: {"X"} as numpy; ``statics``: {"metric", "impl", "block",
     "search_defaults"}.  Returns the port ``BruteIndex`` on ``device``."""
     return BruteIndex.from_snapshot(arrays, statics, device=device)
+
+
+def ivf_flat_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                            device: DeviceLike = None) -> IVFFlat:
+    """``arrays``: {"X", "centroids", "lists", "list_lens"} as numpy;
+    ``statics``: {"metric", "search_defaults"}."""
+    return IVFFlat.from_snapshot(arrays, statics, device=device)
+
+
+def ivf_pq_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                          device: DeviceLike = None) -> IVFPQ:
+    """``arrays``: {"X", "centroids", "codebooks", "codes", "lists",
+    "list_lens"} as numpy; ``statics``: {"metric", "search_defaults"}."""
+    return IVFPQ.from_snapshot(arrays, statics, device=device)
+
+
+def nsw_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                       device: DeviceLike = None) -> NSWGraph:
+    """``arrays``: {"X", "neighbors"} as numpy; ``statics``: {"metric",
+    "entry", "search_defaults"}."""
+    return NSWGraph.from_snapshot(arrays, statics, device=device)
+
+
+def attrs_from_jax_state(arrays: Mapping[str, Any],
+                         statics: Mapping[str, Any]) -> attrs_lib.AttributeStore:
+    """``arrays``: {"num_<col>", "cat_<col>"} as numpy; ``statics``:
+    {"numeric", "categorical"}.  Attach it with ``index.attach_store``."""
+    return attrs_lib.AttributeStore.from_snapshot(dict(arrays), dict(statics))
 
 
 def quant_store_from_jax(arrays: Mapping[str, Any], *,

@@ -1,8 +1,11 @@
 """Index protocol and registry — the part of ``repro.core.index`` the port
 serves: ``SearchResult``, ``register_index``, ``build`` with the reserved
-``quant`` key, ``attach_quant_store``, the memory audit helpers and
-``resolve``.  The reserved keys ``attrs`` and ``chaos`` (attribute
-filters, fault injection) and ``ShardedIndex`` are not ported yet.
+``attrs`` and ``quant`` keys, ``attach_store``, ``attach_quant_store``, the
+memory audit helpers and ``resolve``.  The five built-in engines are
+``brute``, ``ivf_flat``, ``ivf_pq``, ``nsw`` (``core/baselines``) and
+``infinity`` (``core/search``); each takes ``search(..., filter=)``.  The
+reserved key ``chaos`` (fault injection) and ``ShardedIndex`` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Any, Mapping, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import attrs as attrs_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.device import DeviceLike
 
@@ -24,8 +28,9 @@ class SearchResult(NamedTuple):
 
 
 _REGISTRY: dict[str, type] = {}
-#: reserved cfg keys the port does not serve yet (``quant`` it does)
-UNPORTED = ("attrs", "chaos")
+#: reserved cfg keys the port does not serve yet (``attrs`` and ``quant``
+#: it does)
+UNPORTED = ("chaos",)
 
 
 def register_index(name: str):
@@ -67,6 +72,11 @@ def build(name: str, X, cfg: Optional[Mapping[str, Any]] = None, *,
     (default CUDA).  Keys the engine's build does not take become its
     search defaults.
 
+    The reserved key ``attrs`` — ``{column: per-row values}`` — builds a
+    columnar ``core/attrs.AttributeStore`` aligned with the corpus rows and
+    attaches it (``attach_store``), enabling predicate filters on every
+    engine's ``search``.  It is handled here, once for every engine.
+
     The reserved key ``quant`` (truthy) quantizes the corpus to int8 codes
     (``core/quant.QuantStore``) and attaches the store
     (``attach_quant_store``): brute then scans codes first and reranks a
@@ -79,12 +89,15 @@ def build(name: str, X, cfg: Optional[Mapping[str, Any]] = None, *,
             raise NotImplementedError(
                 f"registry key {key!r} is not ported to repro_torch yet"
             )
+    attr_values = cfg.pop("attrs", None)
     quant_cfg = cfg.pop("quant", None)
     hook = getattr(cls, "registry_build", None)
     if hook is not None:
         inst = hook(X, cfg, device=device)
     else:
         inst = generic_registry_build(cls, X, cfg, device=device)
+    if attr_values:
+        attach_store(inst, attrs_lib.AttributeStore.build(attr_values, int(inst.X.shape[0])))
     if quant_cfg:
         attach_quant_store(inst, quant_lib.QuantStore.build(inst.X))
     return inst
@@ -108,6 +121,17 @@ def generic_registry_build(cls, X, cfg: Optional[Mapping[str, Any]], *,
     inst = cls.build(X, device=device, **bkw)
     inst.search_defaults = skw
     return inst
+
+
+def attach_store(inst, store) -> None:
+    """Attach a built ``core/attrs.AttributeStore`` — through the engine's
+    ``attach_attrs`` hook when it has one, else as a plain ``attrs``
+    attribute."""
+    hook = getattr(inst, "attach_attrs", None)
+    if hook is not None:
+        hook(store)
+    else:
+        inst.attrs = store
 
 
 def attach_quant_store(inst, store) -> None:
@@ -137,10 +161,14 @@ def pytree_nbytes(tree) -> int:
 
 
 def side_store_bytes(inst) -> int:
-    """Bytes of the per-instance side stores (``quant`` codes) — every
-    engine's ``memory_bytes`` adds this."""
-    store = getattr(inst, "quant", None)
-    return 0 if store is None else int(store.memory_bytes())
+    """Bytes of the per-instance side stores (``attrs`` columns, ``quant``
+    codes) — every engine's ``memory_bytes`` adds this."""
+    total = 0
+    for name in ("attrs", "quant"):
+        store = getattr(inst, name, None)
+        if store is not None:
+            total += store.memory_bytes()
+    return int(total)
 
 
 def resolve(value, defaults: Optional[Mapping[str, Any]], key: str, fallback=None):

@@ -32,7 +32,7 @@ from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, blocked_topk
 INF = float("inf")
 
 __all__ = ["DEFAULT_BLOCK", "pow2ceil", "topk_scan", "topk_scan_quant",
-           "merge_topk", "topk_candidates", "quant_candidates"]
+           "merge_topk", "topk_candidates", "quant_candidates", "in_chunks"]
 
 
 def pow2ceil(x: int) -> int:
@@ -130,10 +130,14 @@ def topk_candidates(
     Q (B, d), cand (B, C) dataset ids with -1 padding, X (n, d) -> (idx
     (B, k) int32 dataset ids or -1, dists (B, k) ascending).  The batched
     form of the JAX package's per-query ``topk_candidates`` under ``vmap``:
-    rows are gathered, scored with the metric's matrix form, and selected
-    with a stable sort, so ties go to the earlier candidate position."""
-    return _select_candidates(Q, cand, X[cand.long().clamp_min(0)].float(),
-                              k=k, metric=metric)
+    rows are gathered, scored with the metric's pair form, and selected
+    with a stable sort, so ties go to the earlier candidate position.  The
+    (B, C, d) gather is taken a chunk of queries at a time (``in_chunks``)."""
+    def select(q, c):
+        return _select_candidates(q, c, X[c.long().clamp_min(0)].float(), k=k,
+                                  metric=metric)
+
+    return in_chunks(select, 4 * cand.shape[1] * X.shape[1], Q, cand)
 
 
 def quant_candidates(
@@ -149,19 +153,43 @@ def quant_candidates(
     candidate lists scored against the dequantised codes (the batched form
     of the JAX package's per-query ``quant_candidates`` under ``vmap``).
     No kernel runs here, in either package."""
-    G = quant_lib.decode(codes[cand.long().clamp_min(0)], scales)  # (B, C, d)
-    return _select_candidates(Q, cand, G, k=k, metric=metric)
+    def select(q, c):
+        return _select_candidates(q, c, quant_lib.decode(codes[c.long().clamp_min(0)], scales),
+                                  k=k, metric=metric)
+
+    return in_chunks(select, 4 * cand.shape[1] * codes.shape[1], Q, cand)
+
+
+#: the most bytes the largest per-chunk intermediate of ``in_chunks`` may take
+GATHER_BYTES = 1 << 30
+
+
+def in_chunks(fn, row_bytes: int, *tensors: torch.Tensor) -> tuple:
+    """``fn(*tensors)`` over chunks of their leading (query) dimension, each
+    chunk as many rows as keep ``row_bytes`` per row within
+    ``GATHER_BYTES`` (at least one), the outputs concatenated.  ``fn`` must
+    treat every row on its own, so the result does not depend on the
+    chunking."""
+    rows = tensors[0].shape[0]
+    step = max(1, GATHER_BYTES // max(1, int(row_bytes)))
+    if rows <= step:
+        return fn(*tensors)
+    parts = [fn(*(t[i:i + step] for t in tensors)) for i in range(0, rows, step)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def _select_candidates(Q: torch.Tensor, cand: torch.Tensor, G: torch.Tensor, *,
                        k: int, metric: str) -> tuple[torch.Tensor, torch.Tensor]:
     """Score the gathered rows G (B, C, d) of candidate lists cand (B, C)
     and keep the k best of each list (stable: ties to the earlier
-    position); -1 candidates score +inf."""
+    position); -1 candidates score +inf.  Scores take the metric's pair
+    form, whose reductions run along each row whatever the batch, so a
+    query's answer does not depend on the queries it shares a call (or a
+    chunk) with; a batched matmul's can, on the card."""
     k = int(k)
     cand = cand.long()
     B, C = cand.shape
-    D = metrics_lib.matrix_fn(metric)(Q.float()[:, None, :], G)[:, 0, :]
+    D = metrics_lib.pair_fn(metric)(Q.float()[:, None, :], G)
     D = torch.where(cand >= 0, D, INF)
     if C < k:
         D = torch.cat([D, torch.full((B, k - C), INF, device=D.device)], dim=1)

@@ -10,7 +10,7 @@ Search: embed the queries, then Theorem-1 descent (q = inf, k = 1, no
 rerank), the beam over the flattened tree (batches of
 ``AUTO_BEAM_MIN_BATCH`` or more) or best-first, then rerank the candidates
 in the ORIGINAL metric (two-stage search, App. F.5) with a gather, the
-metric's matrix form and a stable sort.
+metric's pair form and a stable sort.
 
 On a CUDA device the kernels are the default; the CPU runs their plain
 versions.  With a ``quant`` store attached (``index.attach_quant_store``)
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import embedding as embed_lib
+from repro_torch.core import filter as filter_lib
 from repro_torch.core import index as index_lib
 from repro_torch.core import knn_graph as knn_lib
 from repro_torch.core import metrics as metrics_lib
@@ -216,6 +217,7 @@ class InfinityIndex:
         budget: Optional[int] = None,
         beam_width: Optional[int] = None,
         bucket_cap: Optional[int] = None,
+        filter=None,
     ) -> SearchResult:
         """Returns ``SearchResult``: indices (B, k) int32, distances (B, k)
         in the ORIGINAL metric (ascending), comparisons (B,) int32.
@@ -226,7 +228,12 @@ class InfinityIndex:
         at least ``AUTO_BEAM_MIN_BATCH`` queries, else best_first.
         budget: alias of ``max_comparisons`` (a plan for the beam, a gate
         for best-first).  rerank: two-stage width K (0 = off); each
-        reranked candidate counts as one comparison."""
+        reranked candidate counts as one comparison.
+        filter: predicate spec / (n,) bool mask.  The tree accepts only
+        passing candidates (every visit still counts), descent is disabled
+        (a single path may hold no passing point), and the two-stage width
+        is scaled by the bucketed 1/selectivity so recall holds on narrow
+        filters."""
         sd = self.search_defaults
         mode = index_lib.resolve(mode, sd, "mode", "auto")
         if max_comparisons is None:
@@ -235,10 +242,19 @@ class InfinityIndex:
         rerank = int(index_lib.resolve(rerank, sd, "rerank", 0))
         beam_width = index_lib.resolve(beam_width, sd, "beam_width")
         bucket_cap = index_lib.resolve(bucket_cap, sd, "bucket_cap")
+        filter = index_lib.resolve(filter, sd, "filter")
+        attrs = getattr(self, "attrs", None)
+        mask = filter_lib.resolve_mask(filter, attrs, self.X.shape[0], self.X.device)
         Q = torch.as_tensor(Q, dtype=torch.float32, device=self.X.device)
         Zq = embed_lib.apply(self.phi, Q)
         K = max(k, rerank)
-        if self._use_descend(mode, self.config.q, K):
+        if mask is not None and rerank:
+            # widen the candidate stage by the bucketed 1/selectivity; the
+            # fraction is cached per predicate, one host sync each
+            sel = filter_lib.bucket_selectivity(
+                filter_lib.cached_selectivity(filter, attrs, mask))
+            K = filter_lib.scaled_width(K, sel, self.X.shape[0])
+        if mask is None and self._use_descend(mode, self.config.q, K):
             bi, _, comps = vptree_lib.descend_infty(self.tree, Zq, X=self.Z,
                                                     metric="euclidean")
             idx = bi[:, None]
@@ -252,13 +268,13 @@ class InfinityIndex:
             idx, _, comps = vptree_lib.search_beam(
                 flat, Zq, q=self.config.q, k=K, X=Zf, metric="euclidean",
                 max_comparisons=None if max_comparisons is None else int(max_comparisons),
-                beam_width=beam_width, bucket_cap=bucket_cap,
+                beam_width=beam_width, bucket_cap=bucket_cap, valid=mask,
                 codes=codes, scales=scales,
             )
         else:
             idx, _, comps = vptree_lib.search_best_first(
                 self.tree, Zq, q=self.config.q, k=K, X=self.Z, metric="euclidean",
-                max_comparisons=max_comparisons,
+                max_comparisons=max_comparisons, valid=mask,
             )
         if rerank and K > k:
             idx, dists = self._rerank(Q, idx, k)

@@ -128,11 +128,12 @@ def test_brute_registry_keys(data):
     assert eng.X.device.type == "cpu"
     with pytest.raises(TypeError, match="unknown cfg keys"):
         tindex.build("brute", X, {"nprobe": 3}, device=CPU)
-    for key in ("attrs", "chaos"):
-        with pytest.raises(NotImplementedError, match=key):
-            tindex.build("brute", X, {key: {"score": np.ones(N)}}, device=CPU)
-    with pytest.raises(NotImplementedError, match="filters"):
-        eng.search(Q, k=3, filter=np.ones(N, bool))
+    with pytest.raises(NotImplementedError, match="chaos"):
+        tindex.build("brute", X, {"chaos": {"score": np.ones(N)}}, device=CPU)
+    # the attrs key builds a store, and a filter restricts the answers
+    eng = tindex.build("brute", X, {"attrs": {"score": np.arange(N)}}, device=CPU)
+    res = eng.search(Q, k=3, filter={"score": {"range": [None, 9]}})
+    assert (to_np(res.idx) < 10).all() and (to_np(res.comparisons) == 10).all()
 
 
 def test_brute_defaults_to_cuda(monkeypatch, data):

@@ -715,3 +715,135 @@ def test_recsys_serving_on_card_matches_cpu(cuda, arch):
         cpu, {"ids": torch.as_tensor(ids[:3]), "candidates": cand.cpu()})
     np.testing.assert_allclose(s.cpu().numpy(), rs.numpy(), rtol=1e-5, atol=1e-5)
     assert (i.cpu() == ri).float().mean() >= 0.98  # near ties may swap
+
+
+# ---------------------------------------------------------------------------
+# filters and the IVF / NSW engines on the card
+# ---------------------------------------------------------------------------
+
+ENGINES = [
+    ("brute", {}),
+    ("brute", {"quant": True}),
+    ("ivf_flat", {"num_clusters": 16, "nprobe": 4}),
+    ("ivf_flat", {"num_clusters": 16, "nprobe": 4, "quant": True}),
+    ("ivf_pq", {"num_clusters": 16, "M": 8, "ksub": 32, "nprobe": 4, "rerank": 32}),
+    ("ivf_pq", {"num_clusters": 16, "M": 8, "ksub": 32, "nprobe": 4}),
+    ("nsw", {"degree": 12, "ef": 32, "max_steps": 64}),
+]
+
+
+def _filter_data(n=1500, seed=4):
+    X = synthetic.make("manifold", n + 64, d=48, seed=seed)
+    rng = np.random.default_rng(seed)
+    attrs = {"score": rng.uniform(size=n).astype(np.float32),
+             "category": [f"c{i % 8}" for i in range(n)]}
+    return X[:n], X[n:], attrs
+
+
+@pytest.mark.parametrize("name,cfg", ENGINES, ids=[f"{n}-{i}" for i, (n, _) in enumerate(ENGINES)])
+@pytest.mark.parametrize("flt", [None, {"score": {"range": [None, 0.1]}},
+                                 {"category": ["c1", "c5"], "score": {"range": [0.2, 0.9]}}])
+def test_engines_on_card_match_cpu(cuda, name, cfg, flt):
+    """An engine built on the CPU and loaded onto the card (the same
+    centroids, lists, codes and graph) returns the CPU's ids and
+    comparisons, filtered or not; the card's search runs its kernels (the
+    masked regimes under a filter) and returns no failing id."""
+    from repro_torch.core import filter as filter_lib
+
+    X, Q, attrs = _filter_data()
+    cfg = cfg | {"attrs": attrs}
+    cpu = index_lib.build(name, X, cfg, device="cpu")
+    arrays, statics = cpu.snapshot_state()
+    card = type(cpu).from_snapshot({k: v.cpu().numpy() for k, v in arrays.items()}, statics,
+                                   device=cuda)
+    index_lib.attach_store(card, cpu.attrs)
+    if getattr(cpu, "quant", None) is not None:
+        index_lib.attach_quant_store(card, quant_lib.QuantStore.from_snapshot(
+            cpu.quant.snapshot_state()[0], {}, device=cuda))
+    want = cpu.search(Q, k=10, filter=flt)
+    _build.reset_launches()
+    got = card.search(Q, k=10, filter=flt)
+    torch.cuda.synchronize()
+    counts = _build.launches()
+    assert got.idx.is_cuda
+    assert_same_ids(got.idx, got.dist, want.idx, want.dist)
+    assert torch.equal(got.comparisons.cpu(), want.comparisons)
+    if name == "brute":
+        assert counts["topk/int8" if cfg.get("quant") else "topk/f32"] == 1
+    if name.startswith("ivf"):
+        assert counts["pdist/matmul"] == 1  # the coarse probe
+    if flt is not None:
+        mask = filter_lib.resolve_mask(flt, card.attrs, X.shape[0], cuda)
+        ids = got.idx.long()
+        assert bool(mask[ids.clamp_min(0)][ids >= 0].all())
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("s", [0.5, 0.1, 0.01])
+def test_filtered_brute_on_card_is_the_sub_corpus_scan(cuda, quant, s):
+    """Filtered brute on the card (the masked topk / int8 kernel, one
+    launch) equals the plain scan over the passing rows, ids mapped back;
+    the quantized scan where every passing row reaches its shortlist."""
+    X, Q, attrs = _filter_data(4000, seed=5)
+    mask = attrs["score"] <= s
+    eng = index_lib.build("brute", X, {"attrs": attrs, "quant": quant}, device=cuda)
+    _build.reset_launches()
+    res = eng.search(Q, k=10, filter={"score": {"range": [None, s]}})
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/int8" if quant else "topk/f32"] == 1
+    rows = np.where(mask)[0]
+    sd, si = topk_ref(torch.as_tensor(Q, device=cuda), torch.as_tensor(X[mask], device=cuda),
+                      k=10, metric="euclidean")
+    ref = torch.where(si >= 0, torch.as_tensor(rows, device=cuda)[si.long().clamp_min(0)], -1)
+    if not quant or mask.sum() <= quant_lib.shortlist_width(10, X.shape[0]):
+        assert_same_ids(res.idx, res.dist, ref, sd)
+    else:
+        hits = [len(set(a) & set(b)) for a, b in zip(res.idx.tolist(), ref.tolist())]
+        assert sum(hits) / (10 * len(hits)) >= 0.99
+    assert bool(torch.as_tensor(mask, device=cuda)[res.idx.long().clamp_min(0)].all())
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
+def test_chunked_candidate_gather_on_card_matches_one_chunk(cuda, monkeypatch, metric):
+    """The candidate gather split over queries (``scan.in_chunks``) gives
+    the one-chunk answer bit for bit, f32 and on codes."""
+    from repro_torch.core import scan as scan_lib
+
+    X, Q, _ = _filter_data(3000, seed=6)
+    Xt, Qt = torch.as_tensor(X, device=cuda), torch.as_tensor(Q, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cand = torch.randint(-1, X.shape[0], (Q.shape[0], 700), generator=g, device=cuda)
+    codes, scales, _ = quant_lib.QuantStore.build(Xt).device_view()
+    whole = (scan_lib.topk_candidates(Qt, cand, Xt, k=10, metric=metric),
+             scan_lib.quant_candidates(Qt, cand, codes, scales, k=40, metric=metric))
+    monkeypatch.setattr(scan_lib, "GATHER_BYTES", 5 * 4 * 700 * X.shape[1])
+    parts = (scan_lib.topk_candidates(Qt, cand, Xt, k=10, metric=metric),
+             scan_lib.quant_candidates(Qt, cand, codes, scales, k=40, metric=metric))
+    for w, p in zip(whole, parts):
+        assert torch.equal(w[0], p[0]) and torch.equal(w[1], p[1])
+
+
+def test_kmeans_and_nsw_build_on_card_match_cpu(cuda):
+    """Lloyd's iterations on the card (the pdist kernel) from the CPU's
+    initial centroids give the CPU's assignment; the NSW graph built on the
+    card (the topk kernel, self excluded) has the CPU's neighbours up to
+    near ties, and the same long links and entry."""
+    from repro_torch.core import baselines
+
+    X, _, _ = _filter_data(2000, seed=7)
+    init = X[np.random.default_rng(0).choice(X.shape[0], 24, replace=False)]
+    cc, ca = baselines._lloyd(torch.as_tensor(X), torch.as_tensor(init), 10)
+    gc, ga = baselines._lloyd(torch.as_tensor(X, device=cuda), torch.as_tensor(init, device=cuda),
+                              10)
+    assert torch.equal(ga.cpu(), ca)
+    np.testing.assert_allclose(gc.cpu().numpy(), cc.numpy(), rtol=1e-5, atol=5e-4)
+    cpu = index_lib.build("nsw", X, {"degree": 12}, device="cpu")
+    _build.reset_launches()
+    card = index_lib.build("nsw", X, {"degree": 12}, device=cuda)
+    assert _build.launches()["topk/f32"] == 1
+    assert card.entry == cpu.entry
+    assert torch.equal(card.neighbors[:, 12:].cpu(), cpu.neighbors[:, 12:])
+    d = lambda ids: torch.linalg.norm(  # noqa: E731
+        torch.as_tensor(X)[:, None] - torch.as_tensor(X)[ids.long()], dim=-1)
+    assert_same_ids(card.neighbors[:, :12].cpu(), d(card.neighbors[:, :12].cpu()),
+                    cpu.neighbors[:, :12], d(cpu.neighbors[:, :12]))

@@ -227,10 +227,13 @@ def test_registry_build_defaults_and_reserved_keys(data):
     idx = index_lib.build("infinity", X[:120], small | {"rerank": 8, "budget": 50},
                           device=CPU)
     assert idx.search_defaults == {"rerank": 8, "budget": 50}
-    assert index_lib.available() == ("brute", "infinity")
-    for key in ("attrs", "chaos"):
-        with pytest.raises(NotImplementedError, match=key):
-            index_lib.build("infinity", X[:120], small | {key: True}, device=CPU)
+    assert index_lib.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "nsw")
+    with pytest.raises(NotImplementedError, match="chaos"):
+        index_lib.build("infinity", X[:120], small | {"chaos": True}, device=CPU)
+    tagged = index_lib.build("infinity", X[:120], small | {"attrs": {"tag": np.arange(120)}},
+                             device=CPU)
+    assert tagged.attrs.n == 120
+    assert (tagged.search(Q, k=3, filter={"tag": {"range": [None, 59]}}).idx < 60).all()
     assert index_lib.build("infinity", X[:120], small | {"quant": True},
                            device=CPU).quant.rows == 120
     with pytest.raises(TypeError, match="unknown cfg keys"):
