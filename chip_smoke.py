@@ -100,6 +100,38 @@ Phases, in order; any failure exits non-zero:
    ``experiments/BENCH_filtered.json`` row) and ``bench_quant.py``'s
    ivf_flat rows; prints the phase's peak device memory.
 
+9. The serving entry point at full width (``repro_torch.launch.serve``),
+   run right after phase 8 over phase 3's corpus, queries and index.
+   Phase 3's index is saved with ``core/store`` (its rerank width as the
+   search default) under ``build/``, verified and restored by
+   ``SearchServer.restore`` (a counted window that must launch nothing and
+   run no build stage); the save, verify and restore seconds are printed.
+   The server's answers to batches of 1, 40, 64 and 512 (40 is padded to
+   64: the beam) must equal ``index.search`` on the padded batch, sliced,
+   bit for bit; then all queries in batches of 512 through ``serve`` (its
+   p50 / p99 beside phase 3's direct p50 and one taken here), and the full
+   batches again with telemetry off and on, where the three beam stage
+   counters must sum to the served comparisons less the rerank widths.  A
+   probe at ``PROBE_RATE`` over the restored index prints its estimate and
+   Wilson interval beside the exact recall@10.  Live brute at full width,
+   f32 and with a quant store (``delta_cap`` ``DELTA_CAP``): upsert
+   ``DELTA_CAP`` perturbed rows, delete 1 % of the frozen rows, serve
+   every query as a counted window (the frozen and the delta scan each
+   launch their topk once a batch); every upserted row comes back at rank
+   0 for its own query and no deleted id is returned (``leaked`` 0); after
+   ``compact("full")`` the answers equal a fresh brute build over
+   ``corpus()``; the quant server's snapshot restores to the same answers.
+   A live infinity server over the bench-config corpus goes through
+   ``compact("refresh")`` and is checked the same way (its answers after
+   the refresh equal a refresh over ``corpus()`` with the carried
+   embeddings).  Chaos: transient search errors at rate 0.3 are retried and
+   every answer equals the clean server's; a snapshot-corruption rule under
+   ``snapshot_dir`` and a poisoned swap make ``_heal`` restore the last
+   good snapshot, the health log reading SERVING, DEGRADED, RECOVERING,
+   SERVING.  Kernel rows: the masked f32 topk over the delta buffer
+   (512 x 4096 x 784) and the int8 topk over its codes, each against its
+   plain version.
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
 minmax, the bench-config q=2 build and the infinity retrieval in
@@ -2072,6 +2104,590 @@ def phase_filtered(X, Qt, main_state: dict, seed: int) -> tuple[dict, list[dict]
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the serving entry point at full width
+# ---------------------------------------------------------------------------
+
+SERVE_BATCHES = (1, 40, 64, 512)  # 40 and 64 both serve as 64: the beam
+DELTA_CAP = 4096
+LIVE_DELETE_FRAC = 0.01  # of the frozen rows
+PERTURB = 0.01  # upserted rows: corpus rows plus N(0, PERTURB^2) noise
+LIVE_BENCH_DELTA_CAP, LIVE_BENCH_UPSERTS = 512, 256
+BENCH_LIVE_CFG = {"q": math.inf, "proj_sample": 512, "train_steps": 300,
+                  "budget": 1024, "rerank": 256}  # phase 4's bench config
+#: the live brute+quant window serves this many batches: with 1 % of the
+#: frozen rows deleted its frozen scan asks for k' = 1024 and an int8
+#: shortlist of 4096, which the int8 topk's global-list path takes ~1.5 s
+#: a batch to select (PERF.md §6)
+LIVE_QUANT_BATCHES = 2
+CHAOS_ERROR_RATE = 0.3
+CHAOS_BATCHES = 10
+PROBE_RATE = 0.05
+HEAL_LOG = ["SERVING", "DEGRADED", "RECOVERING", "SERVING"]
+
+
+def _padded(Qh, b: int):
+    """``Qh[:b]`` padded as the server pads it: to ``_bucket(b)`` rows,
+    repeating the last."""
+    import numpy as np
+
+    from repro_torch.launch.serve import _bucket
+
+    q = Qh[:b]
+    return np.concatenate([q, np.repeat(q[-1:], _bucket(b) - b, axis=0)])
+
+
+def _same_served(res, want, b: int, what: str) -> None:
+    """A ``ServedResult`` against an engine's answer on the padded batch,
+    sliced: ids, distances and comparisons bit for bit."""
+    import numpy as np
+
+    for name, got, ref in (("ids", res.idx, want.idx), ("distances", res.dist, want.dist),
+                           ("comparisons", res.comparisons, want.comparisons)):
+        if not np.array_equal(got, ref[:b].cpu().numpy()):
+            fail(f"{what}: served {name} differ from the engine's on the padded batch")
+
+
+def _serve_all(srv, Qh, **kw) -> tuple[list, "np.ndarray"]:
+    """Every query through ``srv.query`` in batches of ``BATCH``: (seconds
+    per batch, the (QUERIES, K) ids)."""
+    import numpy as np
+
+    times, ids = [], []
+    for s in range(0, Qh.shape[0], BATCH):
+        t0 = time.perf_counter()
+        res = srv.query(Qh[s:s + BATCH], k=K, **kw)
+        times.append(time.perf_counter() - t0)
+        ids.append(res.idx)
+    return times, np.concatenate(ids)
+
+
+def _p(times: list, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(times) * 1e3, q))
+
+
+def _restore_and_serve(index, Qt, Qh, gt, tmp: str, direct_p50: float) -> tuple[dict, str]:
+    """Save phase 3's index, verify, restore it in a server; serve it
+    against ``index.search`` on the padded batches, then all queries with
+    telemetry off and on.  Returns (row, snapshot path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import store as store_lib
+    from repro_torch.core import telemetry as telem
+    from repro_torch.launch.serve import SearchServer
+
+    # the server answers with the index's defaults: phase 3's rerank width
+    index.search_defaults = {"rerank": SEARCH_KW["rerank"]}
+    path = os.path.join(tmp, "infinity")
+    t0 = time.perf_counter()
+    store_lib.save(index, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store_lib.verify(path)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv, counts = counted(lambda: SearchServer.restore(path, device=DEVICE))
+    restore_s = time.perf_counter() - t0
+    require(counts, {}, "restore")
+    if srv.build_s != 0.0 or srv.index.train_history or srv.engine != "infinity":
+        fail("restore ran a build stage")
+    budget = SEARCH_KW["budget"]
+    for b in SERVE_BATCHES:
+        res = srv.query(Qh[:b], k=K, budget=budget)
+        want = index.search(torch.as_tensor(_padded(Qh, b), device=DEVICE), k=K, **SEARCH_KW)
+        _same_served(res, want, b, f"served batch of {b}")
+
+    stats = srv.serve([Qh[s:s + BATCH] for s in range(0, Qh.shape[0], BATCH)], k=K,
+                      budget=budget)
+    full = [Qh[s:s + BATCH] for s in range(0, (Qh.shape[0] // BATCH) * BATCH, BATCH)]
+    direct = []
+    for b in full:
+        q = torch.as_tensor(b, device=DEVICE)
+        t0 = time.perf_counter()
+        index.search(q, k=K, **SEARCH_KW)
+        torch.cuda.synchronize()
+        direct.append(time.perf_counter() - t0)
+
+    def timed():
+        lat, comps = [], 0
+        for b in full:
+            t0 = time.perf_counter()
+            res = srv.query(b, k=K, budget=budget)
+            lat.append(time.perf_counter() - t0)
+            comps += int(res.comparisons.astype(np.int64).sum())
+        return lat, comps
+
+    off, _ = timed()
+    telem.reset()
+    telem.enable()
+    try:
+        on, on_comps = timed()
+        stages = {lbl["stage"]: int(v) for lbl, v in telem.counter_series("comparisons_total")}
+    finally:
+        telem.disable()
+        telem.reset()
+    beam = sum(stages.get(s, 0) for s in ("traversal", "centroid_rank", "bucket_scan"))
+    if not stages.get("bucket_scan") or beam != on_comps - stages.get("rerank", 0):
+        fail(f"beam stage counters {stages} do not sum to the served comparisons "
+             f"{on_comps} less the rerank widths")
+    _, ids = _serve_all(srv, Qh, budget=budget)
+    row = {
+        "what": "restore + serve", "snapshot_bytes": sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+        "save_seconds": save_s, "verify_seconds": verify_s, "restore_seconds": restore_s,
+        "restore_launches": counts, "batches_checked": list(SERVE_BATCHES),
+        "server_p50_ms": stats["p50_ms"], "server_p99_ms": stats["p99_ms"],
+        "server_qps": stats["qps"], "direct_p50_ms_phase3": direct_p50,
+        "direct_p50_ms": _p(direct, 50), "server_p50_ms_full_batches": _p(off, 50),
+        "server_p50_ms_telemetry_on": _p(on, 50), "server_p99_ms_telemetry_on": _p(on, 99),
+        "comparisons_by_stage": stages, "served_comparisons": on_comps,
+        "recall@10": _recall(torch.as_tensor(ids), gt.cpu(), K),
+    }
+    log("serving " + json.dumps(row))
+    return row, path
+
+
+def _upserts(corpus, count: int, seed: int):
+    """``count`` perturbed corpus rows (host f32) and the frozen ids to
+    delete, both from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = corpus.shape[0]
+    src = rng.choice(n, count, replace=False)
+    rows = corpus[src] + rng.normal(scale=PERTURB, size=(count, corpus.shape[1]))
+    dead = np.sort(rng.choice(n, max(1, int(n * LIVE_DELETE_FRAC)), replace=False))
+    return rows.astype(np.float32), dead
+
+
+def _own_rank0(srv, rows, ids) -> int:
+    """How many upserted rows come back at rank 0 for their own query."""
+    import numpy as np
+
+    found = 0
+    for s in range(0, rows.shape[0], BATCH):
+        res = srv.query(rows[s:s + BATCH], k=K)
+        found += int(np.sum(res.idx[:, 0] == ids[s:s + BATCH]))
+    return found
+
+
+def _live_brute(corpus, Qh, quant: bool, tmp: str, seed: int) -> tuple[dict, dict, dict]:
+    """A live brute server at full width (``delta_cap`` ``DELTA_CAP``,
+    f32 or with a quant store): upsert, delete 1 % of the frozen rows,
+    serve every query as a counted window (the frozen scan and the delta
+    scan each launch once a batch), compact in full and hold the answers
+    to a fresh brute build over ``corpus()``; with ``quant``, snapshot and
+    restore too.  Returns (row, window, the delta's kernel operands)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import scan as scan_lib
+    from repro_torch.launch.serve import SearchServer
+
+    label = "live brute+quant" if quant else "live brute f32"
+    counter = "topk/int8" if quant else "topk/f32"
+    t0 = time.perf_counter()
+    srv = SearchServer(corpus, engine="brute", cfg={}, live=True, delta_cap=DELTA_CAP,
+                       quant=quant, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    rows, dead = _upserts(corpus, DELTA_CAP, seed)
+    t0 = time.perf_counter()
+    ids = srv.upsert(rows)
+    upsert_s = time.perf_counter() - t0
+    srv.delete(dead)
+    served = Qh[:LIVE_QUANT_BATCHES * BATCH] if quant else Qh
+    n_batches = -(-served.shape[0] // BATCH)
+    (times, found), counts = counted(lambda: _serve_all(srv, served))
+    require(counts, {counter: 2 * n_batches}, f"{label} serve")
+    leaked = int(np.isin(found, dead).sum())
+    rank0 = _own_rank0(srv, rows, ids)
+    if leaked or rank0 != DELTA_CAP:
+        fail(f"{label}: leaked {leaked} deleted ids, {rank0}/{DELTA_CAP} upserts at rank 0")
+    n = corpus.shape[0]
+    kf = min(n, scan_lib.pow2ceil(K + dead.size))  # the frozen oversample
+    operands = {"delta": torch.as_tensor(rows, device=DEVICE),
+                "valid": torch.ones(DELTA_CAP, dtype=torch.bool, device=DEVICE),
+                "frozen": srv.index.frozen_X, "kf": kf}
+    if quant:
+        codes, scales, sqn = srv.index.quant.device_view()
+        operands.update(codes=codes[n:], scales=scales, sqnorms=sqn[n:],
+                        frozen_codes=codes[:n], frozen_sqnorms=sqn[:n])
+    # one batch split in two: the frozen engine's oversampled search alone,
+    # then the whole live search (re-score, delta scan, merge)
+    q = torch.as_tensor(Qh[:BATCH], device=DEVICE)
+    frozen = srv.index._gen.frozen
+    t0 = time.perf_counter()
+    frozen.search(q, k=kf)
+    torch.cuda.synchronize()
+    frozen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.index.search(q, k=K)
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+    stats = srv.stats()
+
+    t0 = time.perf_counter()
+    srv.compact("full")
+    compact_s = time.perf_counter() - t0
+    fresh = index_lib.build("brute", srv.index.corpus(), {"quant": True} if quant else {},
+                            device=DEVICE)
+    for s in range(0, Qh.shape[0], BATCH):
+        b = min(BATCH, Qh.shape[0] - s)
+        _same_served(srv.query(Qh[s:s + BATCH], k=K),
+                     fresh.search(torch.as_tensor(_padded(Qh[s:], b), device=DEVICE), k=K),
+                     b, f"{label} after compaction, batch at {s}")
+    row = {"what": label, "delta_cap": DELTA_CAP, "upserts": DELTA_CAP,
+           "deleted": int(dead.size), "build_seconds": build_s, "upsert_seconds": upsert_s,
+           "queries": int(served.shape[0]), "frozen_oversample": kf,
+           "p50_batch_ms": _p(times, 50), "p99_batch_ms": _p(times, 99),
+           "one_batch_ms": {"frozen search at k'": frozen_s * 1e3, "live search": live_s * 1e3},
+           "leaked": leaked, "upserts_at_rank0": rank0, "compact_seconds": compact_s,
+           "stats_before_compaction": {k: stats[k] for k in (
+               "frozen_size", "delta_fill", "tombstones", "n_alive", "memory_bytes")},
+           "launches": counts}
+    if quant:
+        path = os.path.join(tmp, "live")
+        t0 = time.perf_counter()
+        srv.snapshot(path)
+        back = SearchServer.restore(path, device=DEVICE)
+        row["snapshot_restore_seconds"] = time.perf_counter() - t0
+        for s in range(0, Qh.shape[0], BATCH):
+            a, b = srv.query(Qh[s:s + BATCH], k=K), back.query(Qh[s:s + BATCH], k=K)
+            if not (np.array_equal(a.idx, b.idx) and np.array_equal(a.dist, b.dist)):
+                fail(f"{label}: the restored snapshot answers differently at batch {s}")
+        row["restored_equal"] = True
+    log("serving " + json.dumps(row))
+    return row, counts, operands
+
+
+def _live_infinity(bench, tmp: str, seed: int) -> dict:
+    """A live infinity server over the bench-config corpus through a
+    refresh compaction: upserted rows at rank 0, no deleted id returned;
+    after the refresh the answers equal ``refresh`` of the old frozen
+    index over ``corpus()`` with the carried embeddings; a snapshot
+    restores to the same answers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import SearchServer
+
+    corpus, Qt, _ = bench
+    Qh = Qt.cpu().numpy()
+    t0 = time.perf_counter()
+    srv = SearchServer(corpus, engine="infinity", cfg=dict(BENCH_LIVE_CFG), live=True,
+                       delta_cap=LIVE_BENCH_DELTA_CAP, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    rows, dead = _upserts(corpus, LIVE_BENCH_UPSERTS, seed + 1)
+    ids = srv.upsert(rows)
+    srv.delete(dead)
+    found = srv.query(Qh, k=K).idx
+    leaked = int(np.isin(found, dead).sum())
+    rank0 = _own_rank0(srv, rows, ids)
+    if leaked or rank0 != LIVE_BENCH_UPSERTS:
+        fail(f"live infinity: leaked {leaked}, {rank0}/{LIVE_BENCH_UPSERTS} at rank 0")
+    live = srv.index
+    gen = live._gen  # the carried embeddings, read before the swap
+    alive_f = ~gen.tomb[:gen.n_frozen]
+    alive_d = ~gen.tomb[gen.n_frozen:gen.n_slots]
+    Z = torch.cat([gen.frozen.Z[torch.as_tensor(np.nonzero(alive_f)[0], device=DEVICE)],
+                   torch.as_tensor(gen.delta_Z[:gen.fill][alive_d], device=DEVICE)])
+    expect = gen.frozen.refresh(torch.as_tensor(live.corpus(), device=DEVICE), Z=Z)
+    t0 = time.perf_counter()
+    srv.compact("refresh")
+    refresh_s = time.perf_counter() - t0
+    got = srv.query(Qh, k=K)
+    want = expect.search(torch.as_tensor(_padded(Qh, Qh.shape[0]), device=DEVICE), k=K)
+    _same_served(got, want, Qh.shape[0], "live infinity after the refresh")
+    path = os.path.join(tmp, "live_infinity")
+    srv.snapshot(path)
+    back = SearchServer.restore(path, device=DEVICE).query(Qh, k=K)
+    if not np.array_equal(back.idx, got.idx):
+        fail("live infinity: the restored snapshot answers differently")
+    truth = _exact_ids(live.corpus(), Qt)
+    row = {"what": "live infinity (bench config, q=inf)", "corpus": list(corpus.shape),
+           "delta_cap": LIVE_BENCH_DELTA_CAP, "upserts": LIVE_BENCH_UPSERTS,
+           "deleted": int(dead.size), "build_seconds": build_s, "leaked": leaked,
+           "upserts_at_rank0": rank0, "refresh_seconds": refresh_s,
+           "recall@10_after_refresh": _recall(torch.as_tensor(got.idx), truth, K),
+           "restored_equal": True, "generation": srv.stats()["generation"]}
+    log("serving " + json.dumps(row))
+    return row
+
+
+def _exact_ids(corpus_h, Qt):
+    import torch
+
+    from repro_torch.core import scan as scan_lib
+
+    return scan_lib.topk_scan(Qt, torch.as_tensor(corpus_h, device=DEVICE), k=K)[1].cpu()
+
+
+def _chaos_and_heal(corpus, Qh, tmp: str, seed: int) -> list[dict]:
+    """Transient errors (retried; every answer the clean one), then a
+    snapshot-corruption rule under ``snapshot_dir`` and a poisoned swap,
+    which ``_heal`` answers by restoring the last good snapshot."""
+    import numpy as np
+
+    from repro_torch.core import chaos as chaos_lib
+    from repro_torch.launch.serve import FaultPolicy, SearchServer
+
+    plan = {"seed": seed, "rules": [{"site": "search", "kind": "error",
+                                     "rate": CHAOS_ERROR_RATE}]}
+    chaotic = SearchServer(corpus, engine="brute", cfg={}, chaos=plan, device=DEVICE,
+                           policy=FaultPolicy(max_retries=8, backoff_base_s=0.001,
+                                              backoff_cap_s=0.004))
+    clean = SearchServer(corpus, engine="brute", cfg={}, device=DEVICE)
+    for i in range(min(CHAOS_BATCHES, Qh.shape[0] // BATCH)):
+        q = Qh[i * BATCH:(i + 1) * BATCH]
+        if not np.array_equal(chaotic.query(q, k=K).idx, clean.query(q, k=K).idx):
+            fail(f"chaos: batch {i} answers differently under retried faults")
+    faults = dict(chaotic.fault_counters)
+    if faults["retries"] == 0 or faults["retries"] != faults["faults"]:
+        fail(f"chaos: fault counters {faults}")
+    row = {"what": "chaos transient errors", "rate": CHAOS_ERROR_RATE,
+           "batches": CHAOS_BATCHES, "fault_counters": faults,
+           "injected": chaotic.chaos.stats()["injected"], "answers_equal_clean": True,
+           "health": chaotic.health}
+    log("serving " + json.dumps(row))
+    del chaotic, clean
+
+    plan = {"seed": seed, "rules": [{"site": "snapshot", "start": 1, "stop": 2},
+                                    {"site": "build", "start": 1, "stop": 2}]}
+    t0 = time.perf_counter()
+    srv = SearchServer(corpus, engine="brute", cfg={}, chaos=plan, device=DEVICE,
+                       snapshot_dir=os.path.join(tmp, "snaps"))
+    first = srv._last_good
+    second = srv._save_good_snapshot()  # the first write is corrupted, the retry clean
+    before = srv.query(Qh[:BATCH], k=K)
+    try:
+        srv.swap("brute", cfg={})
+        fail("heal: the poisoned swap did not raise")
+    except chaos_lib.BuildFault:
+        pass
+    after = srv.query(Qh[:BATCH], k=K)
+    ok = (srv.health_log == HEAL_LOG and second not in (None, first)
+          and srv.fault_counters["snapshot_corrupt"] == 1
+          and srv.fault_counters["snapshot_restores"] == 1
+          and np.array_equal(before.idx, after.idx))
+    row = {"what": "heal", "health_log": srv.health_log,
+           "fault_counters": dict(srv.fault_counters),
+           "injected": srv.chaos.stats()["injected"], "answers_equal_before": ok,
+           "seconds": time.perf_counter() - t0}
+    log("serving " + json.dumps(row))
+    if not ok:
+        fail(f"heal: {row}")
+    return [row]
+
+
+def _probe(path: str, Qh, gt) -> dict:
+    """A probe at ``PROBE_RATE`` over every query of the restored index:
+    its estimate and Wilson interval beside the exact recall@10 of the
+    same answers."""
+    import torch
+
+    from repro_torch.core import probes as probes_lib
+    from repro_torch.launch.serve import SearchServer
+
+    srv = SearchServer.restore(path, device=DEVICE)
+    srv._probe = probes_lib.RecallProbe({"rate": PROBE_RATE})
+    (times, ids), counts = counted(lambda: _serve_all(srv, Qh, budget=SEARCH_KW["budget"]))
+    q = srv.stats()["quality"]
+    exact = _recall(torch.as_tensor(ids), gt.cpu(), K)
+    # the probe's sampled ordinals are a pure function of (seed, ordinal):
+    # its estimate must be the exact recall over those rows
+    picked = probes_lib.sampled_mask(srv._probe.cfg.seed, PROBE_RATE, 0, Qh.shape[0])
+    on_sample = _recall(torch.as_tensor(ids[picked]), gt.cpu()[torch.as_tensor(picked)], K)
+    if q["probed"] != int(picked.sum()) or abs(on_sample - q["recall_estimate"]) > 5e-5:
+        fail(f"probe: estimate {q['recall_estimate']} over {q['probed']} rows, exact "
+             f"{on_sample} over the {int(picked.sum())} sampled rows")
+    row = {"what": "probe", "rate": PROBE_RATE, "seen": q["seen"], "probed": q["probed"],
+           "recall_estimate": q["recall_estimate"], "ci_low": q["ci_low"],
+           "ci_high": q["ci_high"], "exact_recall@10_sampled_rows": on_sample,
+           "exact_recall@10": exact,
+           "p50_batch_ms": _p(times, 50), "launches": counts}
+    log("serving " + json.dumps(row))
+    if q["seen"] != Qh.shape[0] or not q["probed"]:
+        fail(f"probe: {row}")
+    return row
+
+
+def _delta_kernel_rows(Qt, f32: dict, quant: dict) -> list[dict]:
+    """The masked f32 topk over the live delta buffer and the int8 topk
+    over its codes, at the live windows' shapes, against their plain
+    versions: f32 under the matmul contract, int8 bit for bit.  The bound
+    counts the valid (occupied, alive) rows."""
+    import torch
+
+    from repro_torch.core import quant as quant_lib
+    from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref
+    from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
+
+    q = Qt[:BATCH]
+    m, d = q.shape
+    dX, valid = f32["delta"], f32["valid"]
+    p = int(valid.sum())
+    rows = []
+    od, oi = topk_cuda(q, dX, k=K, valid=valid, metric="euclidean")
+    rd, ri = topk_ref(q, dX, k=K + 1, valid=valid, metric="euclidean")
+    err, ok = close_matmul(od, rd[:, :K])
+    same, ids_ok = ids_agree(oi, ri, rd, K)
+    if not (ok and ids_ok):
+        fail(f"delta topk disagrees with its plain version (max err {err}, ids {same})")
+    far = torch.where(valid, 0.0, float("inf"))
+    rows.append({
+        "name": "topk", "case": f"live delta scan {m}x{DELTA_CAP}x{d} k={K} euclidean, "
+                                f"valid ({p} occupied and alive)",
+        "path": "live brute f32 serve", "idle": None, "counter": "topk/f32",
+        "source": "src/repro_torch/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:123",
+        "max_abs_err": err, "ids_identical": same,
+        "ms": cuda_ms(lambda: topk_cuda(q, dX, k=K, valid=valid, metric="euclidean"), 20),
+        "plain_ms": cuda_ms(lambda: topk_ref(q, dX, k=K, valid=valid, metric="euclidean"), 20),
+        "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, dX) + far, K, dim=1,
+                                                 largest=False), 20),
+        "bound": _bound(ops=2 * m * p * d, rate=F32_FLOPS,
+                        nbytes=4 * (m * d + p * d) + DELTA_CAP + 8 * m * K),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+    codes, scales, sqn, qvalid = quant["codes"], quant["scales"], quant["sqnorms"], quant["valid"]
+    kq = quant_lib.shortlist_width(K, DELTA_CAP)
+    od, oi = topk_quant_cuda(q, codes, scales, sqn, k=kq, valid=qvalid)
+    rd, ri = topk_quant_ref(q, codes, scales, sqn, k=kq, valid=qvalid)
+    if not (torch.equal(od, rd) and torch.equal(oi, ri)):
+        fail(f"delta topk int8 is not bit-identical to its plain version (max err "
+             f"{float((od - rd).abs().max())})")
+
+    rows.append({
+        "name": "topk_int8", "case": f"live delta code scan {m}x{DELTA_CAP}x{d} K={kq} "
+                                     f"euclidean, valid ({p} occupied and alive)",
+        "path": "live brute+quant serve", "idle": None, "counter": "topk/int8",
+        "source": "src/repro_torch/csrc/topk_int8.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:207",
+        "max_abs_err": 0.0, "ids_identical": 1.0,
+        "ms": cuda_ms(lambda: topk_quant_cuda(q, codes, scales, sqn, k=kq, valid=qvalid), 20),
+        "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=kq,
+                                                   valid=qvalid), 20),
+        "library_ms": cuda_ms(lambda: _int8_library(q, codes, scales, sqn, kq, qvalid), 20),
+        "bound": _bound(ops=2 * m * p * d, rate=INT8_OPS,
+                        nbytes=m * d + p * d + 4 * (2 * m + p) + DELTA_CAP + 8 * m * kq),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+    rows += _oversample_kernel_rows(q, f32, quant)
+    return rows
+
+
+def _int8_library(q, codes, scales, sqn, k: int, valid=None):
+    """One PyTorch call chain for the int8 scan: quantised queries,
+    ``torch._int_mm`` for the cross term, ``torch.topk``."""
+    import torch
+
+    from repro_torch.kernels.topk.ref import quantize_queries
+
+    xq, alpha, xn = quantize_queries(q, scales)
+    d2 = xn[:, None] + sqn[None, :] - 2.0 * (torch._int_mm(xq, codes.T).float()
+                                              * alpha[:, None])
+    dist = torch.sqrt(d2.clamp_min(0.0))
+    if valid is not None:
+        dist = dist + torch.where(valid, 0.0, float("inf"))
+    return torch.topk(dist, k, dim=1, largest=False)
+
+
+def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
+    """The frozen scans a live search asks for with 1 % of the frozen rows
+    deleted: the f32 topk at k' and the int8 topk at its shortlist width,
+    over the whole frozen corpus (both past 512: the kernels' global-list
+    path), against their plain versions; a few repetitions, each call
+    takes up to seconds."""
+    import torch
+
+    from repro_torch.core import quant as quant_lib
+    from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref
+    from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
+
+    X, kf = f32["frozen"], f32["kf"]
+    m, d = q.shape
+    n = X.shape[0]
+    rows = []
+    od, oi = topk_cuda(q, X, k=kf, metric="euclidean")
+    rd, ri = topk_ref(q, X, k=kf + 1, metric="euclidean")
+    err, ok = close_matmul(od, rd[:, :kf])
+    same, ids_ok = ids_agree(oi, ri, rd, kf)
+    if not (ok and ids_ok):
+        fail(f"wide topk disagrees with its plain version (max err {err}, ids {same})")
+    rows.append({
+        "name": "topk", "case": f"live frozen oversample {m}x{n}x{d} k={kf} euclidean "
+                                f"(global lists)",
+        "path": "live brute f32 serve", "idle": None, "counter": "topk/f32",
+        "source": "src/repro_torch/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:123",
+        "max_abs_err": err, "ids_identical": same,
+        "ms": cuda_ms(lambda: topk_cuda(q, X, k=kf, metric="euclidean"), 3),
+        "plain_ms": cuda_ms(lambda: topk_ref(q, X, k=kf, metric="euclidean"), 2),
+        "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, X), kf, dim=1,
+                                                 largest=False), 3),
+        "bound": _bound(ops=2 * m * n * d, rate=F32_FLOPS,
+                        nbytes=4 * (m * d + n * d) + 8 * m * kf),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+    codes, scales, sqn = quant["frozen_codes"], quant["scales"], quant["frozen_sqnorms"]
+    kq = quant_lib.shortlist_width(quant["kf"], n)
+    od, oi = topk_quant_cuda(q, codes, scales, sqn, k=kq)
+    rd, ri = topk_quant_ref(q, codes, scales, sqn, k=kq)
+    if not (torch.equal(od, rd) and torch.equal(oi, ri)):
+        fail(f"wide topk int8 is not bit-identical to its plain version (max err "
+             f"{float((od - rd).abs().max())})")
+    rows.append({
+        "name": "topk_int8", "case": f"live frozen oversample {m}x{n}x{d} K={kq} euclidean "
+                                     f"(k'={quant['kf']}; global lists)",
+        "path": "live brute+quant serve", "idle": None, "counter": "topk/int8",
+        "source": "src/repro_torch/csrc/topk_int8.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:207",
+        "max_abs_err": 0.0, "ids_identical": 1.0,
+        "ms": cuda_ms(lambda: topk_quant_cuda(q, codes, scales, sqn, k=kq), 1),
+        "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=kq), 2),
+        "library_ms": cuda_ms(lambda: _int8_library(q, codes, scales, sqn, kq), 2),
+        "bound": _bound(ops=2 * m * n * d, rate=INT8_OPS,
+                        nbytes=m * d + n * d + 4 * (2 * m + n) + 8 * m * kq),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_serving(corpus, Qt, main_state: dict, bench, direct_p50: float,
+                  seed: int) -> tuple[list[dict], list[dict], dict]:
+    """Returns (the phase's rows, its kernel rows, its counted windows)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase9-", dir=os.path.join(HERE, "build"))
+    Qh = Qt.cpu().numpy()
+    try:
+        served, path = _restore_and_serve(main_state["index"], Qt, Qh, main_state["gt"],
+                                          tmp, direct_p50)
+        out = [served, _probe(path, Qh, main_state["gt"])]
+        f32, f32_counts, f32_ops = _live_brute(corpus, Qh, False, tmp, seed)
+        qnt, qnt_counts, qnt_ops = _live_brute(corpus, Qh, True, tmp, seed)
+        qnt_ops["valid"] = f32_ops["valid"]
+        out += [f32, qnt, _live_infinity(bench, tmp, seed)]
+        out += _chaos_and_heal(corpus, Qh, tmp, seed)
+        kernels = _delta_kernel_rows(Qt, f32_ops, qnt_ops)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 {time.perf_counter() - t_phase:.3f} s")
+    return out, kernels, {"live brute f32 serve": f32_counts,
+                          "live brute+quant serve": qnt_counts}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2102,7 +2718,10 @@ def main(argv=None) -> int:
     filtered, filtered_rows, filtered_windows = phase_filtered(
         main_state["index"].X, Qt, main_state, args.seed)
     rows += filtered_rows
-    del main_state, filtered
+    serving, serving_rows, serving_windows = phase_serving(
+        corpus, Qt, main_state, bench, main_path["p50_batch_ms"], args.seed)
+    rows += serving_rows
+    del main_state, filtered, serving
     gc.collect()
     torch.cuda.empty_cache()
     manhattan = phase_manhattan(corpus, Qt)
@@ -2120,6 +2739,7 @@ def main(argv=None) -> int:
     windows["quantized brute serve"] = next(
         r["launches"] for r in quant if r["engine"] == "brute+quant")
     windows.update(filtered_windows)
+    windows.update(serving_windows)
     windows.update({f"{r['arch']} {r['shape']}" if r["shape"] != "infinity retrieval"
                     else "infinity retrieval": r["launches"]
                     for r in recsys if "launches" in r})

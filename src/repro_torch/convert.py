@@ -6,6 +6,7 @@ never imports JAX), and gives the port's object over the same state — so
 both packages can be held to one index:
 
 * ``index_from_jax_state`` — ``InfinityIndex`` (X, Z, Phi, VP tree);
+  ``params_from_phi`` is the way back, a ``Phi`` as JAX's params tree;
 * ``brute_from_jax_state`` — ``BruteIndex``;
 * ``ivf_flat_from_jax_state``, ``ivf_pq_from_jax_state``,
   ``nsw_from_jax_state`` — ``IVFFlat``, ``IVFPQ``, ``NSWGraph`` (the
@@ -51,6 +52,22 @@ def phi_from_params(params: Mapping[str, Any], device: torch.device) -> embed_li
             setattr(phi, name, torch.tensor(np.asarray(params[name], np.float32),
                                                device=device))
     return phi
+
+
+def params_from_phi(phi: embed_lib.Phi) -> dict:
+    """The inverse of ``phi_from_params``: JAX's params tree as numpy —
+    ``layers`` of {"w" (din, dout), "b"} (``nn.Linear.weight`` transposed)
+    plus the normalisers the trainer attached."""
+    params: dict = {"layers": [
+        {"w": mod.weight.detach().cpu().numpy().T.copy(),
+         "b": mod.bias.detach().cpu().numpy()}
+        for mod in phi.layers
+    ]}
+    for name in ("x_mean", "x_std", "d_scale"):
+        val = getattr(phi, name)
+        if val is not None:
+            params[name] = val.detach().cpu().numpy()
+    return params
 
 
 def index_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,

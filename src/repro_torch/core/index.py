@@ -1,11 +1,13 @@
-"""Index protocol and registry — the part of ``repro.core.index`` the port
-serves: ``SearchResult``, ``register_index``, ``build`` with the reserved
-``attrs`` and ``quant`` keys, ``attach_store``, ``attach_quant_store``, the
-memory audit helpers and ``resolve``.  The five built-in engines are
-``brute``, ``ivf_flat``, ``ivf_pq``, ``nsw`` (``core/baselines``) and
-``infinity`` (``core/search``); each takes ``search(..., filter=)``.  The
-reserved key ``chaos`` (fault injection) and ``ShardedIndex`` are not
-ported yet.
+"""Index protocol and registry — port of ``repro.core.index``:
+``SearchResult``, ``register_index``, ``build`` with the reserved
+``attrs``, ``quant`` and ``chaos`` keys, ``attach_store``,
+``attach_quant_store``, ``attach_chaos``, ``list_engines``, the memory
+audit helpers and ``resolve``.  The built-in engines are ``brute``,
+``ivf_flat``, ``ivf_pq``, ``nsw`` (``core/baselines``), ``infinity``
+(``core/search``) and ``live`` (``core/live``, a mutable wrapper over any
+of them); each takes ``search(..., filter=)``.  ``ShardedIndex`` (the
+registry key ``sharded``) is not ported yet: asking for it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Mapping, NamedTuple, Optional
 import torch
 
 from repro_torch.core import attrs as attrs_lib
+from repro_torch.core import chaos as chaos_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.device import DeviceLike
 
@@ -28,9 +31,16 @@ class SearchResult(NamedTuple):
 
 
 _REGISTRY: dict[str, type] = {}
-#: reserved cfg keys the port does not serve yet (``attrs`` and ``quant``
-#: it does)
-UNPORTED = ("chaos",)
+BUILTIN = ("brute", "ivf_flat", "ivf_pq", "nsw", "infinity", "sharded", "live")
+#: registry keys the port does not serve yet, and the ROADMAP item that
+#: brings each
+UNPORTED = {"sharded": "ROADMAP.md Queue 1 item 2 (ShardedIndex)"}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error every not-yet-ported path raises: what, and the ROADMAP
+    item that brings it."""
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: {item}")
 
 
 def register_index(name: str):
@@ -50,6 +60,7 @@ def register_index(name: str):
 def _ensure_builtin() -> None:
     # engines self-register at module load
     import repro_torch.core.baselines  # noqa: F401
+    import repro_torch.core.live  # noqa: F401
     import repro_torch.core.search  # noqa: F401
 
 
@@ -58,8 +69,21 @@ def available() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def list_engines() -> dict[str, str]:
+    """{registry key: one-line summary} for every registered engine — the
+    operator-facing discovery surface (``serve --list-engines``)."""
+    _ensure_builtin()
+    out = {}
+    for name in sorted(_REGISTRY):
+        doc = (_REGISTRY[name].__doc__ or "").strip()
+        out[name] = doc.splitlines()[0].strip() if doc else ""
+    return out
+
+
 def get_index(name: str) -> type:
     _ensure_builtin()
+    if name in UNPORTED:
+        raise not_ported(f"the {name!r} engine", UNPORTED[name])
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -81,26 +105,42 @@ def build(name: str, X, cfg: Optional[Mapping[str, Any]] = None, *,
     (``core/quant.QuantStore``) and attaches the store
     (``attach_quant_store``): brute then scans codes first and reranks a
     ``quant.shortlist_width``-wide shortlist exactly; infinity scans its
-    beam buckets on codes and prefilters its rerank on them."""
+    beam buckets on codes and prefilters its rerank on them; live extends
+    the store to its slot capacity and quantizes upserts.
+
+    The reserved key ``chaos`` — a ``core/chaos.FaultPlan`` or its dict
+    sugar — arms deterministic fault injection: plain engines get their
+    ``search`` wrapped with the latency/transient injector, live holds the
+    plan and consults it at its own fault sites (compaction publish, delta
+    overflow), and ``core/store.save`` consults it to corrupt a snapshot.
+    A ``build``-site fault fires here, after construction: the poisoned
+    instance never escapes."""
     cls = get_index(name)
     cfg = dict(cfg or {})
-    for key in UNPORTED:
-        if cfg.get(key) is not None:
-            raise NotImplementedError(
-                f"registry key {key!r} is not ported to repro_torch yet"
-            )
     attr_values = cfg.pop("attrs", None)
     quant_cfg = cfg.pop("quant", None)
+    chaos_cfg = cfg.pop("chaos", None)
     hook = getattr(cls, "registry_build", None)
     if hook is not None:
         inst = hook(X, cfg, device=device)
     else:
         inst = generic_registry_build(cls, X, cfg, device=device)
     if attr_values:
-        attach_store(inst, attrs_lib.AttributeStore.build(attr_values, int(inst.X.shape[0])))
+        attach_store(inst, attrs_lib.AttributeStore.build(attr_values,
+                                                          int(_corpus(inst).shape[0])))
     if quant_cfg:
-        attach_quant_store(inst, quant_lib.QuantStore.build(inst.X))
+        attach_quant_store(inst, quant_lib.QuantStore.build(_corpus(inst)))
+    if chaos_cfg is not None:
+        plan = chaos_lib.FaultPlan.from_cfg(chaos_cfg)
+        plan.on_build()  # a poisoned build never escapes
+        attach_chaos(inst, plan)
     return inst
+
+
+def _corpus(inst) -> torch.Tensor:
+    """The rows an engine was built over (live: its frozen segment)."""
+    X = getattr(inst, "X", None)
+    return X if X is not None else inst.frozen_X
 
 
 def generic_registry_build(cls, X, cfg: Optional[Mapping[str, Any]], *,
@@ -143,6 +183,26 @@ def attach_quant_store(inst, store) -> None:
         hook(store)
     else:
         inst.quant = store
+
+
+def attach_chaos(inst, plan) -> None:
+    """Arm an engine instance with a ``core/chaos.FaultPlan`` — through its
+    ``attach_chaos`` hook when it has one (live fires compaction / delta
+    faults itself), else by wrapping ``search`` with the generic injector:
+    every call first runs the plan's ``search`` site (latency spikes sleep,
+    transient rules raise), then the engine."""
+    hook = getattr(inst, "attach_chaos", None)
+    if hook is not None:
+        hook(plan)
+        return
+    inst.chaos = plan
+    orig = inst.search
+
+    def chaotic_search(*args, **kwargs):
+        plan.on_search()
+        return orig(*args, **kwargs)
+
+    inst.search = chaotic_search
 
 
 def pytree_nbytes(tree) -> int:

@@ -14,6 +14,13 @@ view: the euclidean family runs the int8 kernel's function (JAX's
 blocked merge over one dequantised block at a time.  ``quant_candidates``
 scores gathered candidate lists on dequantised codes.
 
+Each scan call counts ``scan_dispatch_total{regime, metric}`` in
+``core/telemetry`` (a no-op while telemetry is disabled): ``cuda`` /
+``torch`` for the f32 scan, ``cuda_quant`` / ``torch_quant`` for the int8
+one, by the device of the kernel's inputs (a metric without a kernel
+counts ``torch``).  The JAX package counts traces of its jitted scans;
+the port counts calls.
+
 ``torch.topk`` does not reproduce ``lax.top_k``'s lowest-index tie order,
 so every selection here is a STABLE sort of [running best, new], which
 keeps the earlier entry on ties.
@@ -26,6 +33,7 @@ import torch
 
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import quant as quant_lib
+from repro_torch.core import telemetry as telem
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, blocked_topk
 
@@ -59,8 +67,11 @@ def topk_scan(
     masks global_row == global_col (Q must be Y row-aligned); ``valid``
     (n,) bool masks candidates out."""
     if metric in topk_ops.SUPPORTED:
+        telem.count("scan_dispatch_total", regime="cuda" if Q.is_cuda else "torch",
+                    metric=metric)
         return topk_ops.topk(Q, Y, k=k, metric=metric, exclude_self=exclude_self,
                              valid=valid, block=block)
+    telem.count("scan_dispatch_total", regime="torch", metric=metric)
     return blocked_topk(
         Q.float(), Y.float(), k=k, dist_fn=metrics_lib.matrix_fn(metric),
         exclude_self=exclude_self, valid=valid, block=block,
@@ -87,8 +98,11 @@ def topk_scan_quant(
     against the metric's matrix form, so the (n, d) f32 corpus never
     exists."""
     if metric in topk_ops.QUANT_METRICS:
+        telem.count("scan_dispatch_total",
+                    regime="cuda_quant" if Q.is_cuda else "torch_quant", metric=metric)
         return topk_ops.topk_quant(Q, codes, scales, k=k, metric=metric,
                                    valid=valid, sqnorms=sqnorms, block=block)
+    telem.count("scan_dispatch_total", regime="torch_quant", metric=metric)
     fn = metrics_lib.matrix_fn(metric)
     Qf = Q.float()
     return blocked_topk(

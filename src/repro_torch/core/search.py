@@ -15,8 +15,14 @@ metric's pair form and a stable sort.
 On a CUDA device the kernels are the default; the CPU runs their plain
 versions.  With a ``quant`` store attached (``index.attach_quant_store``)
 the beam's bucket scans read int8 codes of the embedding rows and the
-rerank prefilters its candidates on the store's codes.  Filters and
-telemetry are not ported yet.
+rerank prefilters its candidates on the store's codes.
+
+Telemetry (``core/telemetry``): the ``embed``, ``traversal`` and
+``rerank`` spans, ``comparisons_total{stage=...}`` per branch, and the
+beam's three stage counters with the call's wall time apportioned by
+their comparison share (``_note_stages``).  Every device sync and
+``.item()`` that feeds a counter runs only while telemetry is enabled, so
+the disabled path adds no host sync to a search.
 """
 from __future__ import annotations
 
@@ -36,9 +42,38 @@ from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import qmetric
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import scan as scan_lib
+from repro_torch.core import telemetry as telem
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.index import SearchResult
 from repro_torch.device import DeviceLike, resolve_device, sync
+
+
+def _note_stages(engine: str, qv: float, dt_s: float, stages: dict) -> None:
+    """Record the beam's stage counters.  The three traversal stages run
+    inside one search call, so their wall-clock split is not measured:
+    each stage's span is the call's time apportioned by its comparison
+    share, flagged ``estimated`` in the trace args.  Counters are exact."""
+    if not telem.enabled():
+        return
+    vals = {name: int(arr.sum()) for name, arr in stages.items()}
+    total = sum(vals.values())
+    qs = telem.q_label(qv)
+    ts = telem.now_us() - dt_s * 1e6
+    for name, v in vals.items():
+        telem.count("comparisons_total", v, engine=engine, stage=name, q=qs)
+        share = dt_s * (v / total) if total else 0.0
+        telem.emit_span(name, share, ts_us=ts, engine=engine,
+                        args={"comparisons": v, "estimated": True})
+        ts += share * 1e6
+
+
+def _note_comps(engine: str, stage: str, qv: float, comps) -> None:
+    """Count a branch's total comparisons (reads the device counter back —
+    only when telemetry is enabled, so the disabled path never blocks)."""
+    if not telem.enabled():
+        return
+    telem.count("comparisons_total", int(comps.sum()), engine=engine,
+                stage=stage, q=telem.q_label(qv))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,8 +280,12 @@ class InfinityIndex:
         filter = index_lib.resolve(filter, sd, "filter")
         attrs = getattr(self, "attrs", None)
         mask = filter_lib.resolve_mask(filter, attrs, self.X.shape[0], self.X.device)
-        Q = torch.as_tensor(Q, dtype=torch.float32, device=self.X.device)
-        Zq = embed_lib.apply(self.phi, Q)
+        dev = self.X.device
+        Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
+        with telem.span("embed", engine="infinity"):
+            Zq = embed_lib.apply(self.phi, Q)
+            if telem.enabled():
+                sync(dev)
         K = max(k, rerank)
         if mask is not None and rerank:
             # widen the candidate stage by the bucketed 1/selectivity; the
@@ -254,9 +293,14 @@ class InfinityIndex:
             sel = filter_lib.bucket_selectivity(
                 filter_lib.cached_selectivity(filter, attrs, mask))
             K = filter_lib.scaled_width(K, sel, self.X.shape[0])
-        if mask is None and self._use_descend(mode, self.config.q, K):
-            bi, _, comps = vptree_lib.descend_infty(self.tree, Zq, X=self.Z,
-                                                    metric="euclidean")
+        qv = self.config.q
+        if mask is None and self._use_descend(mode, qv, K):
+            with telem.span("traversal", engine="infinity", mode="descend"):
+                bi, _, comps = vptree_lib.descend_infty(self.tree, Zq, X=self.Z,
+                                                        metric="euclidean")
+                if telem.enabled():
+                    sync(dev)
+            _note_comps("infinity", "traversal", qv, comps)
             idx = bi[:, None]
         elif self._use_beam(mode, Q.shape[0]):
             if rerank:
@@ -265,19 +309,34 @@ class InfinityIndex:
                 K = max(K, quant_lib.shortlist_width(k, self.X.shape[0], mult=8))
             flat, Zf, zc = self._flat_view()
             codes, scales = zc if zc is not None else (None, None)
-            idx, _, comps = vptree_lib.search_beam(
-                flat, Zq, q=self.config.q, k=K, X=Zf, metric="euclidean",
+            t0 = time.perf_counter()
+            idx, _, comps, stages = vptree_lib.search_beam(
+                flat, Zq, q=qv, k=K, X=Zf, metric="euclidean",
                 max_comparisons=None if max_comparisons is None else int(max_comparisons),
                 beam_width=beam_width, bucket_cap=bucket_cap, valid=mask,
-                codes=codes, scales=scales,
+                codes=codes, scales=scales, with_stages=True,
             )
+            if telem.enabled():
+                sync(dev)
+                _note_stages("infinity", qv, time.perf_counter() - t0, stages)
         else:
-            idx, _, comps = vptree_lib.search_best_first(
-                self.tree, Zq, q=self.config.q, k=K, X=self.Z, metric="euclidean",
-                max_comparisons=max_comparisons, valid=mask,
-            )
+            with telem.span("traversal", engine="infinity", mode="best_first"):
+                idx, _, comps = vptree_lib.search_best_first(
+                    self.tree, Zq, q=qv, k=K, X=self.Z, metric="euclidean",
+                    max_comparisons=max_comparisons, valid=mask,
+                )
+                if telem.enabled():
+                    sync(dev)
+            _note_comps("infinity", "traversal", qv, comps)
         if rerank and K > k:
-            idx, dists = self._rerank(Q, idx, k)
+            with telem.span("rerank", engine="infinity"):
+                idx, dists = self._rerank(Q, idx, k)
+                if telem.enabled():
+                    sync(dev)
+            # each reranked candidate costs one original-metric comparison
+            if telem.enabled():
+                telem.count("comparisons_total", int(K) * int(idx.shape[0]),
+                            engine="infinity", stage="rerank", q=telem.q_label(qv))
             comps = comps + K
         else:
             # the k survivors are scored in the ORIGINAL metric and returned
@@ -346,6 +405,30 @@ class InfinityIndex:
                  self._flat["Zf"], self._flat["zcodes"])
             )
         return total
+
+    # -------------------------------------------------------------- snapshot
+    def snapshot_state(self):
+        """(arrays, statics) in the JAX package's layout: Phi as its params
+        tree (``convert.params_from_phi``), so either package loads it."""
+        from repro_torch import convert
+
+        arrays = {
+            "X": self.X, "Z": self.Z, "phi": convert.params_from_phi(self.phi),
+            "vantage": self.tree.vantage, "mu": self.tree.mu,
+            "left": self.tree.left, "right": self.tree.right,
+        }
+        statics = {
+            "config": dataclasses.asdict(self.config),  # tuples -> lists in JSON
+            "depth": self.tree.depth,
+            "search_defaults": self.search_defaults,
+        }
+        return arrays, statics
+
+    @classmethod
+    def from_snapshot(cls, arrays, statics, *, device: DeviceLike = None) -> "InfinityIndex":
+        from repro_torch import convert
+
+        return convert.index_from_jax_state(arrays, statics, device=device)
 
     # --------------------------------------------------------------- refresh
     def refresh(self, X, *, Z: Optional[torch.Tensor] = None) -> "InfinityIndex":

@@ -18,6 +18,7 @@ from repro.core import index as jindex  # noqa: E402
 from repro.core import quant as jquant  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import baselines as tbase  # noqa: E402
+from repro_torch.core import chaos as tchaos  # noqa: E402
 from repro_torch.core import index as tindex  # noqa: E402
 from repro_torch.core import quant as tquant  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -128,8 +129,10 @@ def test_brute_registry_keys(data):
     assert eng.X.device.type == "cpu"
     with pytest.raises(TypeError, match="unknown cfg keys"):
         tindex.build("brute", X, {"nprobe": 3}, device=CPU)
-    with pytest.raises(NotImplementedError, match="chaos"):
-        tindex.build("brute", X, {"chaos": {"score": np.ones(N)}}, device=CPU)
+    # the chaos key arms a fault plan: a build-site rule poisons the build
+    with pytest.raises(tchaos.BuildFault):
+        tindex.build("brute", X, {"chaos": {"rules": [{"site": "build", "rate": 1.0}]}},
+                     device=CPU)
     # the attrs key builds a store, and a filter restricts the answers
     eng = tindex.build("brute", X, {"attrs": {"score": np.arange(N)}}, device=CPU)
     res = eng.search(Q, k=3, filter={"score": {"range": [None, 9]}})

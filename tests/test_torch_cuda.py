@@ -14,6 +14,7 @@ version round the same products and sums in the same order); recsys
 logits against the CPU rtol / atol 1e-5.
 """
 import math
+import os
 
 import numpy as np
 import pytest
@@ -847,3 +848,119 @@ def test_kmeans_and_nsw_build_on_card_match_cpu(cuda):
         torch.as_tensor(X)[:, None] - torch.as_tensor(X)[ids.long()], dim=-1)
     assert_same_ids(card.neighbors[:, :12].cpu(), d(card.neighbors[:, :12].cpu()),
                     cpu.neighbors[:, :12], d(cpu.neighbors[:, :12]))
+
+
+# ---------------------------------------------------------------------------
+# serving, live mutation and snapshots on the card
+# ---------------------------------------------------------------------------
+
+SERVE_ENGINES = {
+    "brute": {},
+    "brute+quant": {"quant": True},
+    "ivf_flat": {"num_clusters": 16, "nprobe": 4},
+    "ivf_pq": {"num_clusters": 16, "M": 8, "ksub": 32, "nprobe": 4, "rerank": 32},
+    "nsw": {"degree": 12, "ef": 32, "max_steps": 64},
+    "infinity": {"q": math.inf, "proj_sample": 512, "knn_k": 8, "num_hops": 4,
+                 "embed_dim": 16, "hidden": (64,), "train_steps": 100,
+                 "batch_pairs": 256, "rerank": 64},
+}
+
+
+@pytest.fixture(scope="module")
+def serve_snapshots(tmp_path_factory):
+    """{engine: snapshot path} of engines built on the CPU (with the demo
+    attribute columns), the corpus and queries."""
+    from repro_torch.core import store as store_lib
+
+    X, Q, attrs = _filter_data(2000, seed=8)
+    root = tmp_path_factory.mktemp("card_snaps")
+    paths = {}
+    for name, cfg in SERVE_ENGINES.items():
+        engine = name.split("+")[0]
+        eng = index_lib.build(engine, X, dict(cfg) | {"attrs": attrs}, device="cpu")
+        paths[name] = store_lib.save(eng, str(root / name.replace("+", "_")))
+    return paths, X, Q
+
+
+@pytest.mark.parametrize("batch", [1, 7, 40, 64])
+@pytest.mark.parametrize("name", list(SERVE_ENGINES))
+def test_restored_server_on_card_matches_cpu(cuda, serve_snapshots, name, batch):
+    """``SearchServer.restore`` of one snapshot on the card and on the CPU:
+    the same ids (near ties aside) and comparisons, filtered or not; the
+    card's answers come back as host arrays."""
+    from repro_torch.launch.serve import SearchServer
+
+    paths, _, Q = serve_snapshots
+    card = SearchServer.restore(paths[name], device=cuda)
+    cpu = SearchServer.restore(paths[name], device="cpu")
+    assert card.corpus.is_cuda and card.index.memory_bytes() == cpu.index.memory_bytes()
+    for flt in (None, {"score": {"range": [None, 0.3]}}):
+        got = card.query(Q[:batch], k=10, budget=512, filter=flt)
+        want = cpu.query(Q[:batch], k=10, budget=512, filter=flt)
+        assert isinstance(got.idx, np.ndarray)
+        assert_same_ids(got.idx, got.dist, want.idx, want.dist)
+        np.testing.assert_array_equal(got.comparisons, want.comparisons)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("engine", ["brute", "infinity"])
+def test_live_index_on_card_matches_cpu(cuda, serve_snapshots, engine, quant):
+    """One live snapshot restored on the card and on the CPU, then the
+    same upsert / delete / refresh-or-full compaction script: equal ids
+    from upsert and compact, search ids equal up to near ties; the card's
+    delta scan launches the masked topk (f32) or the int8 topk (quant)
+    once per search."""
+    from repro_torch.core import store as store_lib
+
+    paths, X, Q = serve_snapshots
+    rng = np.random.default_rng(3)
+    Xnew = rng.normal(size=(96, X.shape[1])).astype(np.float32)
+    cfg = {"engine": engine, "engine_cfg": dict(SERVE_ENGINES[engine]),
+           "delta_cap": 128, "auto_compact": False,
+           "compact_mode": "refresh" if engine == "infinity" else "full"}
+    if quant:
+        cfg["quant"] = True
+    seed = index_lib.build("live", X, cfg, device="cpu")
+    seed.upsert(Xnew[:8])
+    seed.delete([2, 5])
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        path = store_lib.save(seed, td)
+        card, cpu = store_lib.load(path, device=cuda), store_lib.load(path, device="cpu")
+    for step in range(3):
+        ids = card.upsert(Xnew[8 + 24 * step:32 + 24 * step])
+        assert np.array_equal(ids, cpu.upsert(Xnew[8 + 24 * step:32 + 24 * step]))
+        assert card.delete(ids[:3]) == cpu.delete(ids[:3])
+        _build.reset_launches()
+        got = card.search(Q, k=10)
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        want = cpu.search(Q, k=10)
+        assert_same_ids(got.idx, got.dist, want.idx, want.dist)
+        assert counts["topk/int8" if quant else "topk/f32"] >= 1
+        own = card.search(torch.as_tensor(Xnew[11 + 24 * step:32 + 24 * step], device=cuda),
+                          k=1)
+        assert np.array_equal(own.idx[:, 0].cpu().numpy(), ids[3:])
+    assert np.array_equal(card.compact(), cpu.compact())
+    assert card.stats() == cpu.stats()
+    got, want = card.search(Q, k=10), cpu.search(Q, k=10)
+    assert_same_ids(got.idx, got.dist, want.idx, want.dist)
+
+
+def test_store_round_trip_on_card(cuda, serve_snapshots, tmp_path):
+    """A snapshot saved from the card loads on the CPU (and back) with
+    every member equal."""
+    from repro_torch.core import store as store_lib
+
+    paths, _, Q = serve_snapshots
+    for name, path in paths.items():
+        card = store_lib.load(path, device=cuda)
+        again = store_lib.save(card, str(tmp_path / name.replace("+", "_")))
+        for p in (path, again):
+            store_lib.verify(p)
+        with np.load(os.path.join(path, store_lib.peek(path)["arrays"])) as a, \
+                np.load(os.path.join(again, store_lib.peek(again)["arrays"])) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for key in a.files:
+                np.testing.assert_array_equal(a[key], b[key], err_msg=f"{name}: {key}")

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 from repro.core import index as jindex  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import baselines as tbase  # noqa: E402
+from repro_torch.core import chaos as tchaos  # noqa: E402
 from repro_torch.core import filter as tfilter  # noqa: E402
 from repro_torch.core import index as tindex  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
@@ -105,8 +106,12 @@ def test_snapshot_round_trips(pair):
 
 def test_registry_lists_the_five_engines(data):
     X, _, _ = data
-    assert tindex.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "nsw")
-    assert tindex.available() == tuple(k for k in jindex.available()
-                                       if k not in ("sharded", "live"))
-    with pytest.raises(NotImplementedError, match="chaos"):
-        tindex.build("nsw", X, {"chaos": {"seed": 0}}, device=CPU)
+    # the five engines and the live wrapper; ShardedIndex is not ported
+    assert tindex.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "live", "nsw")
+    assert tindex.available() == tuple(k for k in jindex.available() if k != "sharded")
+    with pytest.raises(NotImplementedError, match="ShardedIndex"):
+        tindex.build("sharded", X, {"engine": "nsw", "shards": 2}, device=CPU)
+    eng = tindex.build("nsw", X, {"chaos": {"seed": 0, "rules": [
+        {"site": "search", "start": 0, "stop": 1}]}}, device=CPU)
+    with pytest.raises(tchaos.TransientFault):
+        eng.search(X[:2], k=2)
