@@ -132,6 +132,32 @@ Phases, in order; any failure exits non-zero:
    (512 x 4096 x 784) and the int8 topk over its codes, each against its
    plain version.
 
+10. Sharded serving at full width (``ShardedIndex``, every shard on the
+   card), run right after phase 9 over phase 3's corpus and queries, each
+   engine served over ``SHARD_BATCHES`` batches of 512 (k=10, p50 / p99,
+   recall@10 against phase 3's ground truth, launches per window): brute
+   f32 and brute + quant at S = 2 and 4 (S topk launches a batch; f32 ids
+   equal to the one-shard brute's up to near ties, the count that differ
+   printed; quantized, every rank's distance at most the one-shard quantized
+   answer's, since the shards' shortlists hold the one-shard shortlist, and
+   the reranked distances exact); ``ivf_flat`` and ``infinity`` (two
+   ``IndexConfig()`` builds, one a shard) through ``SearchServer(shards=2)``;
+   the same server over brute with shard 1 killed by chaos (every batch
+   within its deadline, ``degraded``, ``shards_answered`` 1, the ids of a
+   brute search over shard 0's rows); a live server over the two-shard
+   brute at phase 9's ``delta_cap`` and deletes, ``LIVE_SHARD_BATCHES``
+   batches (three f32 topk launches a batch; answers equal to a one-shard
+   live server's up to near ties), compacted in full (the odd row carried
+   into the delta) and restored from a snapshot, both answering as a fresh
+   brute; ``capture_roofline`` for brute f32 (S
+   = 1 and 2) and the two-shard infinity server (``pct_of_peak`` at most
+   1.05); ``ServingRuntime`` and its HTTP front with ``RUNTIME_CLIENTS``
+   concurrent clients posting ``RUNTIME_REQUESTS`` single queries (answers
+   equal to the server's direct answer up to near ties; queue wait p50 /
+   p99, batch fill) and a full queue answering 429.  Kernel rows: the f32
+   and int8 topk on one shard's rows at S = 2 and 4, pdist at the IVF
+   probes' shape, and the f32 topk of one live shard's frozen scan at k'.
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
 minmax, the bench-config q=2 build and the infinity retrieval in
@@ -157,13 +183,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (dense): f32 on the CUDA cores, int8 on the
-# tensor cores, HBM bandwidth.
-F32_FLOPS = 67e12  # an FMA counts as two flops
-F32_INSTR = F32_FLOPS / 2  # f32 lane instructions per second
-INT8_OPS = 1979e12
-HBM_BYTES = 3.35e12
 
 DEVICE = "cuda"
 # main-path shapes: the projection subset (IndexConfig().proj_sample), the
@@ -467,6 +486,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
     from repro_torch.core import knn_graph as knn_lib
     from repro_torch.core import quant as quant_lib
     from repro_torch.data import synthetic
+    from repro_torch.dist import roofline
     from repro_torch.kernels.pdist.pdist import pdist_cuda
     from repro_torch.kernels.pdist.ref import pdist_ref
     from repro_torch.kernels.qpath.ref import qpath_matmul_ref
@@ -512,10 +532,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
             "ms": cuda_ms(lambda: pdist_cuda(S, S, metric=metric), 20),
             "plain_ms": cuda_ms(lambda: pdist_ref(S, S, metric=metric), 3 if cube else 20),
             "library_ms": cuda_ms(lib, 5 if cube else 20),
-            "bound": (_bound(ops=2 * m * n * d, rate=F32_INSTR,
-                             nbytes=4 * (m * d + n * d + m * n)) if cube else
-                      _bound(ops=2 * m * n * d, rate=F32_FLOPS,
-                             nbytes=4 * (m * d + n * d + m * n))),
+            "bound": _bound(*roofline.pdist_work(m, n, d, cube=cube)),
         })
         log("kernel " + json.dumps(rows[-1]))
 
@@ -577,10 +594,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
             "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(Xq, Y, p=p), k, dim=1,
                                                      largest=False),
                                   1 if once else reps, warmup=not once),
-            "bound": (_bound(ops=2 * m * n * d, rate=F32_INSTR,
-                             nbytes=4 * (m * d + n * d) + 8 * m * k) if cube else
-                      _bound(ops=2 * m * n * d, rate=F32_FLOPS,
-                             nbytes=4 * (m * d + n * d) + 8 * m * k)),
+            "bound": _bound(*roofline.topk_work(m, n, d, k, cube=cube, masked=False)),
         })
         log("kernel " + json.dumps(rows[-1]))
 
@@ -628,8 +642,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
             "ms": cuda_ms(lambda: topk_quant_cuda(Xq, codes, scales, sqn, k=k), reps),
             "plain_ms": cuda_ms(lambda: topk_quant_ref(Xq, codes, scales, sqn, k=k), reps),
             "library_ms": cuda_ms(library, reps),
-            "bound": _bound(ops=2 * m * n * d, rate=INT8_OPS,
-                            nbytes=m * d + n * d + 4 * (2 * m + n) + 8 * m * k),
+            "bound": _bound(*roofline.topk_int8_work(m, n, d, k, masked=False)),
             **_int8_geometry(ptxas, m, n, k, dev),
         })
         log("kernel " + json.dumps(rows[-1]))
@@ -673,6 +686,7 @@ def _qpath_sweep(mode: str, A, B, what: str) -> dict:
     the least time."""
     import torch
 
+    from repro_torch.dist import roofline
     from repro_torch.kernels import _build
     from repro_torch.kernels.qpath.qpath import (
         MODE_CODES, TILE, WAVES, qpath_matmul_cuda, split_plan,
@@ -697,8 +711,7 @@ def _qpath_sweep(mode: str, A, B, what: str) -> dict:
         "max_abs_err": err,
         "ms": cuda_ms(lambda: qpath_matmul_cuda(A, B, mode=mode), 5),
         "plain_ms": cuda_ms(lambda: qpath_matmul_ref(A, B, mode=mode), 2),
-        "bound": _bound(ops=2 * m * kd * n, rate=F32_INSTR,
-                        nbytes=4 * (m * kd + kd * n + m * n)),
+        "bound": _bound(*roofline.qpath_work(m, kd, n)),
     }
 
 
@@ -791,6 +804,7 @@ def _merge_row(name: str, replaces: str, path: str, counter: str, plan, k: int,
 
     import torch
 
+    from repro_torch.dist import roofline
     from repro_torch.kernels import _build
     from repro_torch.kernels.topk.ref import merge_splits_ref
 
@@ -839,31 +853,23 @@ def _merge_row(name: str, replaces: str, path: str, counter: str, plan, k: int,
         "ms": cuda_ms(merge, 20),
         "plain_ms": cuda_ms(lambda: merge_splits_ref(part_d, part_i, k), 20),
         "library_ms": cuda_ms(library, 20),
-        "bound": _bound(ops=m * k * S, rate=F32_INSTR, nbytes=8 * reads + 8 * m * k),
+        "bound": _bound(*roofline.merge_work(m, k, S, reads)),
     }
     log("kernel " + json.dumps(row))
     return row
 
 
 def _bag_bound(ids, D: int, weighted: bool, elem: int = 4) -> dict:
-    """Bytes the bag must move: each distinct 32-byte sector of the table
-    rows its ids name (a D * elem-byte row spans whole sectors; a row several
-    lookups share is read once), the ids (and weights) once, the (B, D)
-    output once.  ``gathered_bytes`` counts the sectors per lookup instead
-    (no reuse)."""
-    import torch
+    """Bytes the bag must move (``roofline.bag_work``): each distinct
+    32-byte sector of the table rows its ids name (a D * elem-byte row spans
+    whole sectors; a row several lookups share is read once), the ids (and
+    weights) once, the (B, D) output once.  ``gathered_bytes`` counts the
+    sectors per lookup instead (no reuse)."""
+    from repro_torch.dist import roofline
 
-    B, S = ids.shape
-    row = elem * D
-    start = ids.clamp_min(0).long().reshape(-1) * row
-    first, last = start // 32, (start + row - 1) // 32
-    span = int((last - first).max()) + 1
-    sectors = torch.cat([(first + j)[first + j <= last] for j in range(span)])
-    distinct = int(torch.unique(sectors).numel())
-    per_call = 4 * B * S * (2 if weighted else 1) + 4 * B * D
-    bound = _bound(ops=2 * B * S * D, rate=F32_INSTR,
-                   nbytes=32 * distinct + per_call)
-    bound["gathered_bytes"] = 32 * int(sectors.numel()) + per_call
+    bound = _bound(*roofline.bag_work(ids, D, weighted=weighted, elem=elem))
+    bound["gathered_bytes"] = roofline.bag_work(ids, D, weighted=weighted, elem=elem,
+                                                reuse=False)[2]
     return bound
 
 
@@ -1006,9 +1012,15 @@ def _bag_rows(seed: int, ptxas: dict) -> list[dict]:
     return rows
 
 
-def _bound(*, ops: float, rate: float, nbytes: float) -> dict:
-    t_ops = ops / rate * 1e3
-    t_bytes = nbytes / HBM_BYTES * 1e3
+def _bound(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time for a kernel's work as ``repro_torch.dist.roofline``'s
+    work functions give it — (ops, their kind, bytes) — against that
+    module's H100 peaks: the larger of ops over their rate and bytes over
+    the HBM rate."""
+    from repro_torch.dist import roofline
+
+    t_ops = ops / roofline.RATES[kind] * 1e3
+    t_bytes = nbytes / roofline.HBM_BW * 1e3
     return {"ms": max(t_ops, t_bytes),
             "by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": nbytes}
@@ -1802,6 +1814,7 @@ def _filter_kernel_rows(X, Qt, mask, codes, scales, sqn) -> list[dict]:
     counts the passing columns, what this mask's scan needs."""
     import torch
 
+    from repro_torch.dist import roofline
     from repro_torch.kernels.topk.ref import quantize_queries, topk_quant_ref, topk_ref
     from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
 
@@ -1829,8 +1842,7 @@ def _filter_kernel_rows(X, Qt, mask, codes, scales, sqn) -> list[dict]:
         "plain_ms": cuda_ms(lambda: topk_ref(q, X, k=K, valid=mask, metric="euclidean"), 10),
         "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, X) + far, K, dim=1,
                                                  largest=False), 10),
-        "bound": _bound(ops=2 * m * p * d, rate=F32_FLOPS,
-                        nbytes=4 * (m * d + p * d) + n + 8 * m * K),
+        "bound": _bound(*roofline.topk_work(m, n, d, K, cube=False, masked=True, live=p)),
     })
     log("kernel " + json.dumps(rows[-1]))
     od, oi = topk_quant_cuda(q, codes, scales, sqn, k=K_QUANT, valid=mask)
@@ -1856,8 +1868,7 @@ def _filter_kernel_rows(X, Qt, mask, codes, scales, sqn) -> list[dict]:
         "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=K_QUANT,
                                                    valid=mask), 20),
         "library_ms": cuda_ms(library, 20),
-        "bound": _bound(ops=2 * m * p * d, rate=INT8_OPS,
-                        nbytes=m * d + p * d + 4 * (2 * m + p) + n + 8 * m * K_QUANT),
+        "bound": _bound(*roofline.topk_int8_work(m, n, d, K_QUANT, masked=True, live=p)),
     })
     log("kernel " + json.dumps(rows[-1]))
     return rows
@@ -1871,6 +1882,7 @@ def _engine_kernel_rows(X, ivf, pq) -> list[dict]:
     against its plain version under the matmul contract."""
     import torch
 
+    from repro_torch.dist import roofline
     from repro_torch.kernels.pdist.pdist import pdist_cuda
     from repro_torch.kernels.pdist.ref import pdist_ref
     from repro_torch.kernels.topk.ref import topk_ref
@@ -1899,8 +1911,7 @@ def _engine_kernel_rows(X, ivf, pq) -> list[dict]:
             "ms": cuda_ms(lambda: pdist_cuda(A, B, metric="sqeuclidean"), 20),
             "plain_ms": cuda_ms(lambda: pdist_ref(A, B, metric="sqeuclidean"), 20),
             "library_ms": cuda_ms(lambda: torch.cdist(A, B).square_(), 20),
-            "bound": _bound(ops=2 * m * n * d, rate=F32_FLOPS,
-                            nbytes=4 * (m * d + n * d + m * n)),
+            "bound": _bound(*roofline.pdist_work(m, n, d, cube=False)),
         })
         log("kernel " + json.dumps(rows[-1]))
     n, d = X.shape
@@ -1924,7 +1935,7 @@ def _engine_kernel_rows(X, ivf, pq) -> list[dict]:
         "library_ms": cuda_ms(lambda: torch.topk(
             torch.cdist(X, X).fill_diagonal_(float("inf")), k, dim=1, largest=False),
             1, warmup=False),
-        "bound": _bound(ops=2 * n * n * d, rate=F32_FLOPS, nbytes=4 * 2 * n * d + 8 * n * k),
+        "bound": _bound(*roofline.topk_work(n, n, d, k, cube=False, masked=False)),
     })
     log("kernel " + json.dumps(rows[-1]))
     return rows
@@ -2522,6 +2533,7 @@ def _delta_kernel_rows(Qt, f32: dict, quant: dict) -> list[dict]:
     import torch
 
     from repro_torch.core import quant as quant_lib
+    from repro_torch.dist import roofline
     from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref
     from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
 
@@ -2548,8 +2560,8 @@ def _delta_kernel_rows(Qt, f32: dict, quant: dict) -> list[dict]:
         "plain_ms": cuda_ms(lambda: topk_ref(q, dX, k=K, valid=valid, metric="euclidean"), 20),
         "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, dX) + far, K, dim=1,
                                                  largest=False), 20),
-        "bound": _bound(ops=2 * m * p * d, rate=F32_FLOPS,
-                        nbytes=4 * (m * d + p * d) + DELTA_CAP + 8 * m * K),
+        "bound": _bound(*roofline.topk_work(m, DELTA_CAP, d, K, cube=False, masked=True,
+                                            live=p)),
     })
     log("kernel " + json.dumps(rows[-1]))
     codes, scales, sqn, qvalid = quant["codes"], quant["scales"], quant["sqnorms"], quant["valid"]
@@ -2571,8 +2583,7 @@ def _delta_kernel_rows(Qt, f32: dict, quant: dict) -> list[dict]:
         "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=kq,
                                                    valid=qvalid), 20),
         "library_ms": cuda_ms(lambda: _int8_library(q, codes, scales, sqn, kq, qvalid), 20),
-        "bound": _bound(ops=2 * m * p * d, rate=INT8_OPS,
-                        nbytes=m * d + p * d + 4 * (2 * m + p) + DELTA_CAP + 8 * m * kq),
+        "bound": _bound(*roofline.topk_int8_work(m, DELTA_CAP, d, kq, masked=True, live=p)),
     })
     log("kernel " + json.dumps(rows[-1]))
     rows += _oversample_kernel_rows(q, f32, quant)
@@ -2604,6 +2615,7 @@ def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
     import torch
 
     from repro_torch.core import quant as quant_lib
+    from repro_torch.dist import roofline
     from repro_torch.kernels.topk.ref import topk_quant_ref, topk_ref
     from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
 
@@ -2628,8 +2640,7 @@ def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
         "plain_ms": cuda_ms(lambda: topk_ref(q, X, k=kf, metric="euclidean"), 2),
         "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, X), kf, dim=1,
                                                  largest=False), 3),
-        "bound": _bound(ops=2 * m * n * d, rate=F32_FLOPS,
-                        nbytes=4 * (m * d + n * d) + 8 * m * kf),
+        "bound": _bound(*roofline.topk_work(m, n, d, kf, cube=False, masked=False)),
     })
     log("kernel " + json.dumps(rows[-1]))
     codes, scales, sqn = quant["frozen_codes"], quant["scales"], quant["frozen_sqnorms"]
@@ -2649,8 +2660,7 @@ def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
         "ms": cuda_ms(lambda: topk_quant_cuda(q, codes, scales, sqn, k=kq), 1),
         "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=kq), 2),
         "library_ms": cuda_ms(lambda: _int8_library(q, codes, scales, sqn, kq), 2),
-        "bound": _bound(ops=2 * m * n * d, rate=INT8_OPS,
-                        nbytes=m * d + n * d + 4 * (2 * m + n) + 8 * m * kq),
+        "bound": _bound(*roofline.topk_int8_work(m, n, d, kq, masked=False)),
     })
     log("kernel " + json.dumps(rows[-1]))
     return rows
@@ -2688,6 +2698,593 @@ def phase_serving(corpus, Qt, main_state: dict, bench, direct_p50: float,
 
 
 # ---------------------------------------------------------------------------
+# phase 10: sharded serving, degraded shards, roofline profiles, runtime
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4)
+SHARD_BATCHES = 20  # timed batches of BATCH per sharded engine
+SHARD_DEADLINE_MS = 5000.0
+RUNTIME_CLIENTS = 4  # concurrent HTTP clients
+RUNTIME_REQUESTS = 512  # single-query requests, spread over the clients
+RUNTIME_POLICY = {"max_batch": 64, "flush_ms": 2.0, "capacity": 1024}
+#: live over sharded serves this many batches: with 1 % of the frozen rows
+#: deleted each shard's frozen scan asks for k' = 1024, the f32 topk's
+#: global-list path (PERF.md §6)
+LIVE_SHARD_BATCHES = 2
+
+
+def _shard_starts() -> list[int]:
+    """Row offsets of the timed batches: ``SHARD_BATCHES`` batches of
+    ``BATCH`` queries, the last ones clamped to the query set."""
+    return [min(b * BATCH, QUERIES - BATCH) for b in range(SHARD_BATCHES)]
+
+
+def _serve_batches(search, Qt) -> tuple[list, "torch.Tensor", "torch.Tensor", "torch.Tensor"]:
+    """``search`` over the timed batches, each synchronised: (seconds per
+    batch, ids, dists, comparisons) in batch order."""
+    import torch
+
+    times, ids, dists, comps = [], [], [], []
+    for s in _shard_starts():
+        t0 = time.perf_counter()
+        res = search(Qt[s:s + BATCH])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        ids.append(res.idx)
+        dists.append(res.dist)
+        comps.append(res.comparisons)
+    return times, torch.cat(ids), torch.cat(dists), torch.cat(comps)
+
+
+def _served_rows(t):
+    """The rows of a per-query tensor that the timed batches answer."""
+    import torch
+
+    return torch.cat([t[s:s + BATCH] for s in _shard_starts()])
+
+
+def _sharded_row(what: str, times, ids, comps, gt, counts, **extra) -> dict:
+    row = {"what": what, "batches": len(times), "batch": BATCH, "k": K,
+           "p50_batch_ms": _p(times, 50), "p99_batch_ms": _p(times, 99),
+           "recall@10": _recall(ids, gt, K),
+           "mean_comparisons": float(comps.float().mean()),
+           "launches": counts, **extra}
+    log("sharded " + json.dumps(row))
+    return row
+
+
+def _sharded_brute(corpus_t, Qt, gt, gt_d) -> tuple[list[dict], dict]:
+    """Brute f32 and brute + quant over S = 2 and 4 shards, each against
+    the one-shard engine: f32 ids equal up to near ties; the quantized
+    shards' union of shortlists holds the one-shard shortlist, so after the
+    exact rerank each rank's distance is at most the one-shard answer's."""
+    import torch
+
+    from repro_torch.core import index as index_lib
+
+    n = corpus_t.shape[0]
+    batches = SHARD_BATCHES
+    gt_s, gt_ds = _served_rows(gt), _served_rows(gt_d)
+    one = index_lib.build("brute", corpus_t, {}, device=DEVICE)
+    ref = [one.search(Qt[s:s + BATCH], k=K + 1) for s in _shard_starts()]
+    ref_i = torch.cat([r.idx for r in ref])
+    ref_d = torch.cat([r.dist for r in ref])
+    one_q = index_lib.build("brute", corpus_t, {"quant": True}, device=DEVICE)
+    _, one_qi, one_qd, _ = _serve_batches(lambda q: one_q.search(q, k=K), Qt)
+    del one, one_q
+    rows, windows = [], {}
+    for S in SHARD_COUNTS:
+        eng = index_lib.build("sharded", corpus_t, {"engine": "brute", "shards": S},
+                              device=DEVICE)
+        what = f"sharded brute f32 serve S={S}"
+        (times, ids, dists, comps), counts = counted(
+            lambda: _serve_batches(lambda q: eng.search(q, k=K), Qt))
+        require(counts, {"topk/f32": S * batches}, what)
+        same, ok = ids_agree(ids, ref_i, ref_d, K)
+        err, dist_ok = close_matmul(dists, ref_d[:, :K])
+        if not (ok and dist_ok) or not bool((comps == n).all()):
+            fail(f"{what}: ids / distances off the one-shard brute's (identical "
+                 f"{same}, max err {err})")
+        rows.append(_sharded_row(
+            what, times, ids, comps, gt_s, counts, shards=S,
+            ids_differing_from_one_shard=int((ids != ref_i[:, :K]).sum()),
+            identical_ids=same, max_abs_err_vs_one_shard=err,
+            launches_per_batch=counts["topk/f32"] / batches))
+        windows[what] = counts
+        del eng
+
+        eng = index_lib.build("sharded", corpus_t, {"engine": "brute", "shards": S,
+                                                    "quant": True}, device=DEVICE)
+        what = f"sharded brute+quant serve S={S}"
+        (times, ids, dists, comps), counts = counted(
+            lambda: _serve_batches(lambda q: eng.search(q, k=K), Qt))
+        require(counts, {"topk/int8": S * batches}, what)
+        worse = dists > one_qd + MATMUL_ATOL + MATMUL_RTOL * one_qd.abs()
+        err, exact = close_matmul(dists, torch.linalg.vector_norm(
+            corpus_t[ids.long()] - _served_rows(Qt)[:, None, :], dim=-1))
+        row = _sharded_row(
+            what, times, ids, comps, gt_s, counts, shards=S,
+            ids_differing_from_one_shard=int((ids != one_qi).sum()),
+            ranks_worse_than_one_shard=int(worse.sum()), rerank_max_abs_err=err,
+            one_shard_recall=_recall(one_qi, gt_s, K),
+            launches_per_batch=counts["topk/int8"] / batches)
+        rows.append(row)
+        windows[what] = counts
+        if bool(worse.any()) or not exact or row["recall@10"] < QUANT_BRUTE_FLOOR:
+            fail(f"{what}: {row}")
+        del eng
+    return rows, windows
+
+
+def _sharded_ivf_and_infinity(corpus, Qt, gt) -> tuple[list[dict], dict, object, object]:
+    """IVF-Flat and infinity over two shards, built and served through
+    ``SearchServer(shards=2)``; returns (rows, windows, the infinity
+    server for the roofline, shard 0's IVF centroids for the kernel
+    row)."""
+    import torch
+
+    from repro_torch.launch.serve import SearchServer
+
+    gt_s = _served_rows(gt)
+    rows, windows = [], {}
+    srv = SearchServer(corpus, engine="ivf_flat", shards=2,
+                       cfg={**IVF_CFG, "iters": IVF_ITERS}, device=DEVICE)
+    what = "sharded ivf_flat serve S=2"
+    (times, ids, _, comps), counts = counted(lambda: _serve_batches(
+        lambda q: srv.index.search(q, k=K), Qt))
+    require(counts, {"pdist/matmul": 2 * SHARD_BATCHES}, what)
+    rows.append(_sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
+                             config=IVF_CFG, build_seconds=srv.build_s))
+    windows[what] = counts
+    cents = srv.index.shard_views()[0]["centroids"].clone()
+    del srv
+
+    what = "sharded infinity build S=2"
+    srv, counts = counted(lambda: SearchServer(
+        corpus, engine="infinity", shards=2, cfg={"rerank": SEARCH_KW["rerank"]},
+        device=DEVICE))
+    require(counts, {"topk/f32": 2, "pdist/matmul": 2, "qpath/minmax": 2 * NUM_HOPS},
+            what)
+    windows[what] = counts
+    build_s = srv.build_s
+    srv.index.search(Qt[:BATCH], k=K, budget=SEARCH_KW["budget"])  # flattens the trees
+    what = "sharded infinity serve S=2"
+    (times, ids, _, comps), counts = counted(lambda: _serve_batches(
+        lambda q: srv.index.search(q, k=K, budget=SEARCH_KW["budget"]), Qt))
+    require(counts, {}, what)
+    rows.append(_sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
+                             config={"rerank": SEARCH_KW["rerank"],
+                                     "budget": SEARCH_KW["budget"]},
+                             build_seconds=build_s))
+    windows[what] = counts
+    if rows[-1]["recall@10"] < FULL_RECALL_FLOOR:
+        fail(f"{what}: recall@10 {rows[-1]['recall@10']} < {FULL_RECALL_FLOOR}")
+    torch.cuda.synchronize()
+    return rows, windows, srv, cents
+
+
+def _degraded(corpus, Qt) -> tuple[dict, dict]:
+    """``SearchServer(shards=2)`` with shard 1 killed through chaos: every
+    batch answers within its deadline from shard 0, flagged degraded, with
+    the ids of a brute search over shard 0's rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import index as index_lib
+    from repro_torch.launch.serve import SearchServer
+
+    srv = SearchServer(corpus, engine="brute", shards=2, cfg={}, device=DEVICE,
+                       chaos={"seed": 0, "rules": []})
+    half = corpus.shape[0] // 2
+    only0 = index_lib.build("brute", corpus[:half], {}, device=DEVICE)
+    srv.chaos.kill_shard(1)
+    Qh = Qt.cpu().numpy()
+    what = "degraded sharded brute serve S=2"
+
+    def serve():
+        out = []
+        for s in _shard_starts():
+            t0 = time.perf_counter()
+            res = srv.query(Qh[s:s + BATCH], k=K, deadline_ms=SHARD_DEADLINE_MS)
+            out.append((time.perf_counter() - t0, res))
+        return out
+
+    served, counts = counted(serve)
+    require(counts, {"topk/f32": SHARD_BATCHES}, what)
+    identical, worst = [], True
+    for s, (_, res) in zip(_shard_starts(), served):
+        ref = only0.search(Qt[s:s + BATCH], k=K + 1)
+        same, ok = ids_agree(torch.as_tensor(res.idx, device=DEVICE), ref.idx, ref.dist, K)
+        identical.append(same)
+        worst &= (ok and res.degraded and res.shards_answered == 1
+                  and res.shards_total == 2 and res.deadline_met
+                  and bool((res.idx < half).all()))
+    times = [t for t, _ in served]
+    row = {"what": what, "batches": len(served), "deadline_ms": SHARD_DEADLINE_MS,
+           "p50_batch_ms": _p(times, 50), "p99_batch_ms": _p(times, 99),
+           "degraded": all(r.degraded for _, r in served),
+           "shards_answered": sorted({r.shards_answered for _, r in served}),
+           "deadline_met": all(r.deadline_met for _, r in served),
+           "retries": int(sum(r.retries for _, r in served)),
+           "identical_ids_vs_shard0_brute": float(np.mean(identical)),
+           "health": srv.health, "dead_shards": sorted(srv._dead_shards),
+           "fault_counters": dict(srv.fault_counters), "launches": counts}
+    log("sharded " + json.dumps(row))
+    if not worst or srv.health != "DEGRADED":
+        fail(f"{what}: {row}")
+    return row, counts
+
+
+def _live_sharded(corpus, Qt, tmp: str, seed: int) -> tuple[dict, dict, dict]:
+    """A live server over a two-shard brute f32 engine at phase 9's
+    ``delta_cap`` and deletes: ``DELTA_CAP - 1`` upserts (an odd alive
+    count, so the compaction carries one row into the new delta), 1 % of
+    the frozen rows deleted, ``LIVE_SHARD_BATCHES`` batches served as a
+    counted window (each shard's frozen scan at the oversampled k' and the
+    delta scan: three f32 topk launches a batch), their answers against a
+    one-shard live server's under the same mutations; then ``compact`` in
+    full (the carry: one row in the delta, the rest on the shards) and a
+    snapshot restored, both answering as a fresh brute over the live
+    corpus.  Returns (row, window, the frozen scan's operands)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import index as index_lib
+    from repro_torch.core import scan as scan_lib
+    from repro_torch.launch.serve import SearchServer
+
+    what = "live brute f32 serve S=2"
+    Qh = Qt.cpu().numpy()
+    t0 = time.perf_counter()
+    srv = SearchServer(corpus, engine="brute", shards=2, cfg={}, live=True,
+                       delta_cap=DELTA_CAP, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    one = SearchServer(corpus, engine="brute", cfg={}, live=True, delta_cap=DELTA_CAP,
+                       device=DEVICE)
+    rows, dead = _upserts(corpus, DELTA_CAP - 1, seed)
+    for s_ in (srv, one):
+        s_.upsert(rows)
+        s_.delete(dead)
+    served = Qh[:LIVE_SHARD_BATCHES * BATCH]
+    (times, found), counts = counted(lambda: _serve_all(srv, served))
+    require(counts, {"topk/f32": 3 * LIVE_SHARD_BATCHES}, what)
+    leaked = int(np.isin(found, dead).sum())
+    ref = [one.query(served[s:s + BATCH], k=K + 1) for s in range(0, served.shape[0], BATCH)]
+    ref_i = torch.as_tensor(np.concatenate([r.idx for r in ref]))
+    ref_d = torch.as_tensor(np.concatenate([r.dist for r in ref]))
+    got = [srv.query(served[s:s + BATCH], k=K) for s in range(0, served.shape[0], BATCH)]
+    same, ids_ok = ids_agree(torch.as_tensor(np.concatenate([r.idx for r in got])),
+                             ref_i, ref_d, K)
+    err, dist_ok = close_matmul(torch.as_tensor(np.concatenate([r.dist for r in got])),
+                                ref_d[:, :K])
+    if leaked or not (ids_ok and dist_ok):
+        fail(f"{what}: leaked {leaked} deleted ids; against the one-shard live server "
+             f"identical ids {same}, max err {err}")
+    n = corpus.shape[0]
+    kf = min(n // 2, scan_lib.pow2ceil(K + dead.size))
+    operands = {"shard": srv.index.frozen_X[:n // 2], "kf": kf}
+    del one
+
+    t0 = time.perf_counter()
+    srv.compact("full")
+    compact_s = time.perf_counter() - t0
+    stats = srv.stats()
+    alive = n - int(dead.size) + DELTA_CAP - 1
+    if (stats["frozen_size"], stats["delta_fill"]) != (alive - alive % 2, alive % 2):
+        fail(f"{what}: compaction left frozen {stats['frozen_size']} / delta "
+             f"{stats['delta_fill']}, want {alive - alive % 2} / {alive % 2}")
+    path = os.path.join(tmp, "live-sharded")
+    t0 = time.perf_counter()
+    srv.snapshot(path)
+    back = SearchServer.restore(path, device=DEVICE)
+    restore_s = time.perf_counter() - t0
+    fresh = index_lib.build("brute", srv.index.corpus(), {}, device=DEVICE)
+    for label, s_ in (("after compaction", srv), ("restored", back)):
+        for s in range(0, served.shape[0], BATCH):
+            ref = fresh.search(torch.as_tensor(served[s:s + BATCH], device=DEVICE), k=K + 1)
+            res = s_.query(served[s:s + BATCH], k=K)
+            same_c, ok = ids_agree(torch.as_tensor(res.idx, device=DEVICE), ref.idx,
+                                   ref.dist, K)
+            err_c, ok_d = close_matmul(torch.as_tensor(res.dist, device=DEVICE),
+                                       ref.dist[:, :K])
+            if not (ok and ok_d):
+                fail(f"{what} {label}, batch at {s}: against a fresh brute identical "
+                     f"ids {same_c}, max err {err_c}")
+    row = {"what": what, "shards": 2, "delta_cap": DELTA_CAP, "upserts": DELTA_CAP - 1,
+           "deleted": int(dead.size), "frozen_oversample": kf, "batches": len(times),
+           "batch": BATCH, "build_seconds": build_s,
+           "p50_batch_ms": _p(times, 50), "p99_batch_ms": _p(times, 99),
+           "leaked": leaked, "identical_ids_vs_one_shard_live": same,
+           "max_abs_err_vs_one_shard_live": err, "compact_seconds": compact_s,
+           "carried_into_delta": stats["delta_fill"],
+           "snapshot_restore_seconds": restore_s, "launches": counts}
+    log("sharded " + json.dumps(row))
+    del srv, back, fresh
+    return row, counts, operands
+
+
+def _roofline(corpus, inf_srv) -> list[dict]:
+    """``capture_roofline`` for brute f32 (one shard and two) and for the
+    two-shard infinity server at the serving batch; ``core/profile``
+    raises where ``pct_of_peak`` would pass 1.05."""
+    from repro_torch.launch.serve import SearchServer
+
+    rows = []
+    for label, srv, budget in (
+            ("brute f32 S=1", SearchServer(corpus, engine="brute", cfg={}, device=DEVICE),
+             None),
+            ("brute f32 S=2", SearchServer(corpus, engine="brute", shards=2, cfg={},
+                                           device=DEVICE), None),
+            ("infinity S=2", inf_srv, SEARCH_KW["budget"])):
+        t0 = time.perf_counter()
+        out = srv.capture_roofline(batch=BATCH, k=K, budget=budget)
+        (name, prof), = out.items()
+        row = {"what": "roofline", "server": label, "seconds": time.perf_counter() - t0,
+               **prof}
+        rows.append(row)
+        log("sharded " + json.dumps(row))
+        if not 0.0 < prof["pct_of_peak"] <= 1.05:
+            fail(f"roofline {label}: pct_of_peak {prof['pct_of_peak']}")
+    return rows
+
+
+def _runtime(corpus, Qt) -> dict:
+    """``ServingRuntime`` and its HTTP front over a two-shard brute server:
+    ``RUNTIME_CLIENTS`` concurrent clients post ``RUNTIME_REQUESTS``
+    single-query requests; every answer equals the server's direct answer
+    up to near ties; then a runtime that is not started, its queue full,
+    answers 429."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.runtime import OverloadPolicy, ServingRuntime, start_http_front
+    from repro_torch.launch.serve import SearchServer
+
+    srv = SearchServer(corpus, engine="brute", shards=2, cfg={}, device=DEVICE)
+    Qh = Qt[:RUNTIME_REQUESTS].cpu().numpy()
+    direct = srv.query(Qh, k=K + 1, record=False)
+    for b in (1, 2, 4, 8, 16, 32, 64):  # every bucket the batcher can form
+        srv.query(Qh[:b], k=K, record=False)
+    run = ServingRuntime(srv, OverloadPolicy(**RUNTIME_POLICY)).start()
+    httpd = start_http_front(run, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/search"
+    answers: dict = {}
+    errors: list = []
+
+    def client(rows):
+        for i in rows:
+            body = json.dumps({"q": Qh[i].tolist(), "k": K,
+                               "deadline_ms": SHARD_DEADLINE_MS}).encode()
+            req = urllib.request.Request(url, data=body,
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    answers[i] = json.loads(resp.read())
+            except Exception as e:  # noqa: BLE001 — reported and failed below
+                errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(c, RUNTIME_REQUESTS,
+                                                           RUNTIME_CLIENTS),))
+               for c in range(RUNTIME_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    httpd.shutdown()
+    run.stop()
+    stats = run.stats()
+    if errors or len(answers) != RUNTIME_REQUESTS:
+        fail(f"runtime: {len(answers)} answers, errors {errors[:3]}")
+    ids = torch.as_tensor(np.stack([answers[i]["idx"] for i in range(RUNTIME_REQUESTS)]))
+    same, ok = ids_agree(ids, torch.as_tensor(direct.idx), torch.as_tensor(direct.dist), K)
+    waits = [answers[i]["queue_ms"] for i in range(RUNTIME_REQUESTS)]
+
+    # a full queue answers 429 with Retry-After
+    idle = ServingRuntime(srv, OverloadPolicy(capacity=2))
+    httpd = start_http_front(idle, port=0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/search"
+
+    def post():
+        req = urllib.request.Request(url, data=json.dumps(
+            {"q": Qh[0].tolist(), "k": K}).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=60)
+
+    def fill():
+        try:
+            post()
+        except urllib.error.HTTPError:
+            pass  # shed at shutdown: 504
+
+    fillers = [threading.Thread(target=fill) for _ in range(2)]
+    for t in fillers:
+        t.start()
+    deadline = time.monotonic() + 10.0
+    while idle.queue.depth() < 2 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    code = retry_after = None
+    try:
+        post()
+    except urllib.error.HTTPError as e:
+        code, retry_after = e.code, e.headers.get("Retry-After")
+    httpd.shutdown()
+    idle.stop()
+    for t in fillers:
+        t.join()
+    row = {"what": "runtime + http front", "server": "brute f32 S=2",
+           "clients": RUNTIME_CLIENTS, "requests": RUNTIME_REQUESTS,
+           "policy": RUNTIME_POLICY, "seconds": wall,
+           "requests_per_s": RUNTIME_REQUESTS / wall,
+           "queue_wait_p50_ms": float(np.percentile(waits, 50)),
+           "queue_wait_p99_ms": float(np.percentile(waits, 99)),
+           "batches": stats["batches"],
+           "batch_fill_mean": stats["completed"] / max(1, stats["batches"]),
+           "identical_ids_vs_direct": same, "answers_equal_direct": ok,
+           "full_queue_status": code, "retry_after": retry_after,
+           "stats": stats}
+    log("sharded " + json.dumps(row))
+    if not ok or stats["completed"] != RUNTIME_REQUESTS or code != 429 \
+            or not retry_after:
+        fail(f"runtime: {row}")
+    return row
+
+
+def _shard_kernel_rows(corpus_t, Qt, cents, live_ops: dict) -> list[dict]:
+    """The kernels at the shard windows' shapes, each against its plain
+    version: the f32 topk and the int8 topk on one shard's rows (S = 2 and
+    4), the pdist of the IVF-Flat probes (one shard's 256 centroids) and
+    the live-over-sharded frozen scan (one shard at the oversampled k')."""
+    import torch
+
+    from repro_torch.core import quant as quant_lib
+    from repro_torch.dist import roofline
+    from repro_torch.kernels.pdist.pdist import pdist_cuda
+    from repro_torch.kernels.pdist.ref import pdist_ref
+    from repro_torch.kernels.topk.ref import quantize_queries, topk_quant_ref, topk_ref
+    from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
+
+    q = Qt[:BATCH]
+    n, d = corpus_t.shape
+    rows = []
+    for S in SHARD_COUNTS:
+        Y = corpus_t[:n // S]
+        m, ns = q.shape[0], Y.shape[0]
+        od, oi = topk_cuda(q, Y, k=K, metric="euclidean")
+        rd, ri = topk_ref(q, Y, k=K + 1, metric="euclidean")
+        err, ok = close_matmul(od, rd[:, :K])
+        same, ids_ok = ids_agree(oi, ri, rd, K)
+        if not (ok and ids_ok):
+            fail(f"topk shard S={S} disagrees with its plain version ({err}, {same})")
+        rows.append({
+            "name": "topk", "case": f"shard batch {m}x{ns}x{d} k={K} euclidean",
+            "path": f"sharded brute f32 serve S={S}", "counter": "topk/f32",
+            "source": "src/repro_torch/csrc/topk.cu",
+            "replaces": "src/repro/kernels/topk/topk.py:123",
+            "max_abs_err": err, "ids_identical": same,
+            "ms": cuda_ms(lambda: topk_cuda(q, Y, k=K, metric="euclidean"), 20),
+            "plain_ms": cuda_ms(lambda: topk_ref(q, Y, k=K, metric="euclidean"), 20),
+            "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, Y), K, dim=1,
+                                                     largest=False), 20),
+            "bound": _bound(*roofline.topk_work(m, ns, d, K, cube=False, masked=False)),
+        })
+        log("kernel " + json.dumps(rows[-1]))
+
+        codes, scales, sqn = quant_lib.QuantStore.build(Y).device_view()
+        kq = quant_lib.shortlist_width(K, ns)
+        od, oi = topk_quant_cuda(q, codes, scales, sqn, k=kq)
+        rd, ri = topk_quant_ref(q, codes, scales, sqn, k=kq)
+        err = float((od - rd).abs().max())
+        if not (torch.equal(od, rd) and torch.equal(oi, ri)):
+            fail(f"topk int8 shard S={S} is not bit-identical to its plain version")
+
+        def library():
+            xq, alpha, xn = quantize_queries(q, scales)
+            acc = torch._int_mm(xq, codes.T)
+            d2 = xn[:, None] + sqn[None, :] - 2.0 * (acc.float() * alpha[:, None])
+            return torch.topk(torch.sqrt(d2.clamp_min(0.0)), kq, dim=1, largest=False)
+
+        rows.append({
+            "name": "topk_int8", "case": f"shard batch {m}x{ns}x{d} K={kq} euclidean",
+            "path": f"sharded brute+quant serve S={S}", "counter": "topk/int8",
+            "source": "src/repro_torch/csrc/topk_int8.cu",
+            "replaces": "src/repro/kernels/topk/topk.py:207",
+            "max_abs_err": err, "ids_identical": 1.0,
+            "ms": cuda_ms(lambda: topk_quant_cuda(q, codes, scales, sqn, k=kq), 20),
+            "plain_ms": cuda_ms(lambda: topk_quant_ref(q, codes, scales, sqn, k=kq), 20),
+            "library_ms": cuda_ms(library, 20),
+            "bound": _bound(*roofline.topk_int8_work(m, ns, d, kq, masked=False)),
+        })
+        log("kernel " + json.dumps(rows[-1]))
+        del codes, sqn
+
+    # the IVF-Flat probes of one shard: the batch against its 256 centroids
+    C = cents
+    m, nc = q.shape[0], C.shape[0]
+    out, ref = pdist_cuda(q, C, metric="euclidean"), pdist_ref(q, C, metric="euclidean")
+    err, ok = close_matmul(out, ref)
+    if not ok:
+        fail(f"pdist IVF probes disagree with the plain version ({err})")
+    rows.append({
+        "name": "pdist", "case": f"IVF-Flat probes {m}x{nc}x{d} euclidean",
+        "path": "sharded ivf_flat serve S=2", "counter": "pdist/matmul",
+        "source": "src/repro_torch/csrc/pdist.cu",
+        "replaces": "src/repro/kernels/pdist/pdist.py:36", "max_abs_err": err,
+        "ms": cuda_ms(lambda: pdist_cuda(q, C, metric="euclidean"), 20),
+        "plain_ms": cuda_ms(lambda: pdist_ref(q, C, metric="euclidean"), 20),
+        "library_ms": cuda_ms(lambda: torch.cdist(q, C), 20),
+        "bound": _bound(*roofline.pdist_work(m, nc, d, cube=False)),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+
+    # one shard's frozen scan under live at k' (the global-list selection)
+    Y, kf = live_ops["shard"], live_ops["kf"]
+    ns = Y.shape[0]
+    od, oi = topk_cuda(q, Y, k=kf, metric="euclidean")
+    rd, ri = topk_ref(q, Y, k=kf + 1, metric="euclidean")
+    err, ok = close_matmul(od, rd[:, :kf])
+    same, ids_ok = ids_agree(oi, ri, rd, kf)
+    if not (ok and ids_ok):
+        fail(f"topk live shard scan disagrees with its plain version ({err}, {same})")
+    rows.append({
+        "name": "topk", "case": f"live shard scan {m}x{ns}x{d} k={kf} euclidean",
+        "path": "live brute f32 serve S=2", "counter": "topk/f32",
+        "source": "src/repro_torch/csrc/topk.cu",
+        "replaces": "src/repro/kernels/topk/topk.py:123",
+        "max_abs_err": err, "ids_identical": same,
+        "ms": cuda_ms(lambda: topk_cuda(q, Y, k=kf, metric="euclidean"), 3),
+        "plain_ms": cuda_ms(lambda: topk_ref(q, Y, k=kf, metric="euclidean"), 3),
+        "library_ms": cuda_ms(lambda: torch.topk(torch.cdist(q, Y), kf, dim=1,
+                                                 largest=False), 3),
+        "bound": _bound(*roofline.topk_work(m, ns, d, kf, cube=False, masked=False)),
+    })
+    log("kernel " + json.dumps(rows[-1]))
+    return rows
+
+
+def phase_sharded(corpus, Qt, main_state: dict,
+                  seed: int) -> tuple[list[dict], list[dict], dict]:
+    """Returns (the phase's rows, its kernel rows, its counted windows)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    corpus_t = torch.as_tensor(corpus, device=DEVICE)
+    gt, gt_d = main_state["gt"], main_state["gt_d"]
+    rows, windows = _sharded_brute(corpus_t, Qt, gt, gt_d)
+    more, more_windows, inf_srv, cents = _sharded_ivf_and_infinity(corpus, Qt, gt)
+    rows += more
+    windows.update(more_windows)
+    row, counts = _degraded(corpus, Qt)
+    rows.append(row)
+    windows[row["what"]] = counts
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase10-", dir=os.path.join(HERE, "build"))
+    try:
+        row, counts, live_ops = _live_sharded(corpus, Qt, tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows.append(row)
+    windows[row["what"]] = counts
+    rows += _roofline(corpus, inf_srv)
+    del inf_srv
+    rows.append(_runtime(corpus, Qt))
+    kernels = _shard_kernel_rows(corpus_t, Qt, cents, live_ops)
+    del corpus_t, live_ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10 {time.perf_counter() - t_phase:.3f} s")
+    return rows, kernels, windows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2721,7 +3318,10 @@ def main(argv=None) -> int:
     serving, serving_rows, serving_windows = phase_serving(
         corpus, Qt, main_state, bench, main_path["p50_batch_ms"], args.seed)
     rows += serving_rows
-    del main_state, filtered, serving
+    sharded, sharded_rows, sharded_windows = phase_sharded(corpus, Qt, main_state,
+                                                           args.seed)
+    rows += sharded_rows
+    del main_state, filtered, serving, sharded
     gc.collect()
     torch.cuda.empty_cache()
     manhattan = phase_manhattan(corpus, Qt)
@@ -2740,6 +3340,7 @@ def main(argv=None) -> int:
         r["launches"] for r in quant if r["engine"] == "brute+quant")
     windows.update(filtered_windows)
     windows.update(serving_windows)
+    windows.update(sharded_windows)
     windows.update({f"{r['arch']} {r['shape']}" if r["shape"] != "infinity retrieval"
                     else "infinity retrieval": r["launches"]
                     for r in recsys if "launches" in r})

@@ -11,6 +11,8 @@ both packages can be held to one index:
 * ``ivf_flat_from_jax_state``, ``ivf_pq_from_jax_state``,
   ``nsw_from_jax_state`` — ``IVFFlat``, ``IVFPQ``, ``NSWGraph`` (the
   k-means centroids, lists, PQ codes and graph as JAX built them);
+* ``sharded_from_jax_state`` — ``ShardedIndex``: a JAX index of S shards
+  (one per device) with every shard on one device;
 * ``attrs_from_jax_state`` — ``AttributeStore`` (columns and vocabularies);
 * ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
   the squared norms are recomputed, as every store derives them);
@@ -28,6 +30,7 @@ from repro_torch.core import attrs as attrs_lib
 from repro_torch.core import embedding as embed_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.baselines import IVFPQ, BruteIndex, IVFFlat, NSWGraph
+from repro_torch.core.index import ShardedIndex
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
@@ -58,16 +61,11 @@ def params_from_phi(phi: embed_lib.Phi) -> dict:
     """The inverse of ``phi_from_params``: JAX's params tree as numpy —
     ``layers`` of {"w" (din, dout), "b"} (``nn.Linear.weight`` transposed)
     plus the normalisers the trainer attached."""
-    params: dict = {"layers": [
-        {"w": mod.weight.detach().cpu().numpy().T.copy(),
-         "b": mod.bias.detach().cpu().numpy()}
-        for mod in phi.layers
-    ]}
-    for name in ("x_mean", "x_std", "d_scale"):
-        val = getattr(phi, name)
-        if val is not None:
-            params[name] = val.detach().cpu().numpy()
-    return params
+    params = embed_lib.params_of(phi)
+    out: dict = {"layers": [{k: v.cpu().numpy() for k, v in layer.items()}
+                            for layer in params.pop("layers")]}
+    out.update({k: v.detach().cpu().numpy() for k, v in params.items()})
+    return out
 
 
 def index_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
@@ -122,6 +120,15 @@ def nsw_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
     """``arrays``: {"X", "neighbors"} as numpy; ``statics``: {"metric",
     "entry", "search_defaults"}."""
     return NSWGraph.from_snapshot(arrays, statics, device=device)
+
+
+def sharded_from_jax_state(arrays: Mapping[str, Any], statics: Mapping[str, Any], *,
+                           device: DeviceLike = None) -> ShardedIndex:
+    """``arrays``: {"stacked": the per-shard state tree, every leaf with a
+    leading shard axis} as numpy; ``statics``: {"engine", "static",
+    "shard_size", "n", "search_defaults"}.  Every shard goes to ``device``,
+    whatever number of devices the JAX index ran on."""
+    return ShardedIndex.from_snapshot(arrays, statics, device=device)
 
 
 def attrs_from_jax_state(arrays: Mapping[str, Any],

@@ -14,8 +14,9 @@ Columns live as host numpy arrays (mutations write rows in place); the
 device mirror is built lazily by ``device_columns(device)`` and dropped on
 every mutation, together with the compiled-mask and selectivity caches
 ``core/filter`` keeps here, so a serving loop re-evaluating one filter
-uploads and compiles once.  ``place`` (the sharded engine's mesh
-placement) waits for ``ShardedIndex``.
+uploads and compiles once.  ``place`` checks and records the sharded
+engine's row layout; the sharded engine hands each shard its rows of a
+compiled mask as a view.
 """
 from __future__ import annotations
 
@@ -43,6 +44,8 @@ class AttributeStore:
     #: compiled masks by (Filter, device) and passing fractions by Filter
     mask_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     sel_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: (shards, shard_size) once ``place`` put the store over row shards
+    layout: Optional[tuple[int, int]] = dataclasses.field(default=None, repr=False)
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -98,6 +101,14 @@ class AttributeStore:
         self._dev = None
         self.mask_cache.clear()
         self.sel_cache.clear()
+
+    def place(self, shards: int, shard_size: int) -> None:
+        """Record the sharded engine's row layout: ``shards`` consecutive
+        slices of ``shard_size`` rows, all on one device (the JAX package
+        pins the columns on a mesh's data axis instead)."""
+        if shards * shard_size != self.n:
+            raise ValueError(f"place: {shards} x {shard_size} rows != {self.n}")
+        self.layout = (int(shards), int(shard_size))
 
     def device_columns(self, device) -> dict[str, torch.Tensor]:
         """{name: (cap,) tensor on ``device``} — f32 for numeric, int32

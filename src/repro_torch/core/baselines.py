@@ -20,7 +20,12 @@ Selections reproduce the JAX package's tie order: ``lax.top_k`` and
 stable sort.  The k-means seeding draws from ``torch.Generator(seed)``
 where JAX draws from ``PRNGKey(seed)``; ``_lloyd`` takes any initial
 centroids, so both packages can be held to the same start.
-``shard_state`` / ``shard_search`` wait for ``ShardedIndex``.
+
+Each engine exposes ``shard_state`` (its state tree and static knobs) and
+``shard_search`` (a search over one shard's slice of ``ShardedIndex``'s
+stack, taking the shard's rows of a filter mask as ``valid=``; brute and
+IVF-Flat also take ``quant=(codes, scales, sqnorms)``, the shard's code
+and sq-norm rows with the shared scales).
 """
 from __future__ import annotations
 
@@ -120,6 +125,9 @@ class BruteIndex:
     search_defaults: dict = dataclasses.field(default_factory=dict)
     quant: Optional[quant_lib.QuantStore] = None
 
+    #: ShardedIndex may hand this engine per-shard code slices
+    shard_supports_quant = True
+
     @classmethod
     def build(cls, X, *, metric: str = "euclidean", impl: str = "jnp",
               block: int = 0, device: DeviceLike = None) -> "BruteIndex":
@@ -157,6 +165,23 @@ class BruteIndex:
         return cls(X=X, metric=statics["metric"], impl=statics["impl"],
                    block=int(statics["block"]),
                    search_defaults=dict(statics.get("search_defaults") or {}))
+
+    def shard_state(self):
+        return {"X": self.X}, {"metric": self.metric, "impl": self.impl, "block": self.block}
+
+    @classmethod
+    def shard_search(cls, state, Q, *, k, budget, static, valid=None, quant=None):
+        X = state["X"]
+        if quant is not None:
+            codes, scales, sqnorms = quant
+            res = _brute_quant_search(
+                Q, codes, scales, sqnorms, X, k=k,
+                K=quant_lib.shortlist_width(k, X.shape[0]), metric=static["metric"],
+                block=static["block"], valid=valid)
+        else:
+            res = brute_force(X, Q, k=k, metric=static["metric"], block=static["block"],
+                              valid=valid)
+        return res.idx, res.dist, res.comparisons
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +272,9 @@ class IVFFlat:
     search_defaults: dict = dataclasses.field(default_factory=dict)
     quant: Optional[quant_lib.QuantStore] = None
 
+    #: ShardedIndex may hand this engine per-shard code slices
+    shard_supports_quant = True
+
     @classmethod
     def build(cls, X, *, num_clusters: int = 64, iters: int = 10,
               metric: str = "euclidean", seed: int = 0,
@@ -296,6 +324,23 @@ class IVFFlat:
             metric=statics["metric"],
             search_defaults=dict(statics.get("search_defaults") or {}),
         )
+
+    def shard_state(self):
+        sd = self.search_defaults or {}
+        static = {"metric": self.metric, "nprobe": sd.get("nprobe"),
+                  "budget": sd.get("budget")}
+        return ({"X": self.X, "centroids": self.centroids, "lists": self.lists,
+                 "list_lens": self.list_lens}, static)
+
+    @classmethod
+    def shard_search(cls, state, Q, *, k, budget, static, valid=None, quant=None):
+        nprobe = _resolve_nprobe(
+            static.get("nprobe"), budget if budget is not None else static.get("budget"),
+            n=state["X"].shape[0], num_clusters=state["centroids"].shape[0])
+        return _ivf_flat_search(
+            state["X"], state["centroids"], state["lists"], Q, k=k, nprobe=nprobe,
+            metric=static["metric"], valid=valid,
+            quant=None if quant is None else quant[:2])
 
 
 def _ivf_flat_search(X, cents, lists, Q, *, k: int, nprobe: int, metric: str,
@@ -400,6 +445,24 @@ class IVFPQ:
             metric=statics["metric"],
             search_defaults=dict(statics.get("search_defaults") or {}),
         )
+
+    def shard_state(self):
+        sd = self.search_defaults or {}
+        static = {"metric": self.metric, "nprobe": sd.get("nprobe"),
+                  "rerank": int(sd.get("rerank") or 0), "budget": sd.get("budget")}
+        return ({"X": self.X, "centroids": self.centroids, "codebooks": self.codebooks,
+                 "codes": self.codes, "lists": self.lists, "list_lens": self.list_lens},
+                static)
+
+    @classmethod
+    def shard_search(cls, state, Q, *, k, budget, static, valid=None):
+        nprobe = _resolve_nprobe(
+            static.get("nprobe"), budget if budget is not None else static.get("budget"),
+            n=state["X"].shape[0], num_clusters=state["centroids"].shape[0])
+        return _ivf_pq_search(
+            state["X"], state["centroids"], state["codebooks"], state["codes"],
+            state["lists"], Q, k=k, nprobe=nprobe, rerank=int(static.get("rerank") or 0),
+            metric=static["metric"], valid=valid)
 
 
 def _ivf_pq_search(X, cents, books, codes, lists, Q, *, k: int, nprobe: int,
@@ -523,6 +586,23 @@ class NSWGraph:
             metric=statics["metric"], entry=int(statics["entry"]),
             search_defaults=dict(statics.get("search_defaults") or {}),
         )
+
+    def shard_state(self):
+        sd = self.search_defaults or {}
+        static = {"metric": self.metric, "ef": sd.get("ef"),
+                  "max_steps": sd.get("max_steps"), "budget": sd.get("budget")}
+        entry = torch.tensor(self.entry, dtype=torch.int32, device=self.X.device)
+        return {"X": self.X, "neighbors": self.neighbors, "entry": entry}, static
+
+    @classmethod
+    def shard_search(cls, state, Q, *, k, budget, static, valid=None):
+        ef, max_steps = cls._resolve_beam(
+            k, static.get("ef"), static.get("max_steps"),
+            budget if budget is not None else static.get("budget"),
+            deg=state["neighbors"].shape[1])
+        return _nsw_search(state["X"], state["neighbors"], Q, int(state["entry"]), k=k,
+                           ef=ef, max_steps=max_steps, metric=static["metric"],
+                           valid=valid)
 
 
 def _nsw_search(X, neighbors, Q, entry: int, *, k: int, ef: int, max_steps: int,

@@ -60,17 +60,27 @@ class Phi(nn.Module):
 
     def forward(self, x: torch.Tensor, *, dropout: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = x if self.x_mean is None else (x - self.x_mean) / self.x_std
-        last = len(self.layers) - 1
-        for i, layer in enumerate(self.layers):
-            h = layer(h)
-            if i < last:
-                h = F.gelu(h, approximate="tanh")
-                if dropout > 0.0 and generator is not None:
-                    keep = torch.rand(h.shape, generator=generator,
-                                      device=h.device) < 1.0 - dropout
-                    h = torch.where(keep, h / (1.0 - dropout), 0.0)
-        return h
+        return _mlp(x, [(layer.weight, layer.bias) for layer in self.layers],
+                    self.x_mean, self.x_std, dropout=dropout, generator=generator)
+
+
+def _mlp(x: torch.Tensor, layers, x_mean: Optional[torch.Tensor],
+         x_std: Optional[torch.Tensor], *, dropout: float = 0.0,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Phi's layer math, the one copy: standardise by ``x_mean`` / ``x_std``
+    (when set), then ``F.linear`` over ``layers`` of (weight (dout, din),
+    bias) with tanh-GELU and, while training, dropout between them."""
+    h = x if x_mean is None else (x - x_mean) / x_std
+    last = len(layers) - 1
+    for i, (w, b) in enumerate(layers):
+        h = F.linear(h, w, b)
+        if i < last:
+            h = F.gelu(h, approximate="tanh")
+            if dropout > 0.0 and generator is not None:
+                keep = torch.rand(h.shape, generator=generator,
+                                  device=h.device) < 1.0 - dropout
+                h = torch.where(keep, h / (1.0 - dropout), 0.0)
+    return h
 
 
 def init_phi(cfg: EmbedConfig, generator: torch.Generator,
@@ -92,6 +102,28 @@ def apply(phi: Phi, x: torch.Tensor) -> torch.Tensor:
     """Phi(x): (..., in_dim) -> (..., out_dim), without autograd."""
     with torch.no_grad():
         return phi(x.float())
+
+
+def params_of(phi: Phi) -> dict:
+    """Phi as the JAX package's params tree of tensors on its device:
+    ``layers`` of {"w" (din, dout), "b"} plus the normalisers the trainer
+    attached (``x_mean``, ``x_std``, ``d_scale``)."""
+    params: dict = {"layers": [{"w": mod.weight.detach().T.contiguous(),
+                                "b": mod.bias.detach().clone()} for mod in phi.layers]}
+    for name in ("x_mean", "x_std", "d_scale"):
+        val = getattr(phi, name)
+        if val is not None:
+            params[name] = val
+    return params
+
+
+def apply_params(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Phi(x) from a params tree in ``params_of``'s layout, without
+    autograd — the form the sharded engine runs on each shard's slice of
+    its stacked trees."""
+    with torch.no_grad():
+        return _mlp(x.float(), [(layer["w"].T, layer["b"]) for layer in params["layers"]],
+                    params.get("x_mean"), params.get("x_std"))
 
 
 def nanmedian(x: torch.Tensor) -> torch.Tensor:

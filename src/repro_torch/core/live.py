@@ -35,8 +35,10 @@ Addressing: frozen rows are slots ``0..n_frozen-1``, delta slot ``j`` is
 ``n_frozen + j``.  Only compaction renumbers; ``compact()`` returns the
 old-slot -> new-slot remap (-1 = deleted), ``upsert`` remaps the ids it
 returns through any swap it triggered, and ``slot_to_logical()`` maps
-slots to positions in ``corpus()``.  A ``sharded`` inner engine is not
-ported yet (``index.get_index`` raises).
+slots to positions in ``corpus()``.  A ``sharded`` inner engine needs
+its frozen corpus divisible by the shard count: compaction carries the
+trailing ``n % shards`` rows into the new generation's delta buffer (so
+``delta_cap`` must be at least the shard count).
 """
 from __future__ import annotations
 
@@ -278,6 +280,20 @@ class LiveIndex:
         delta_cap = int(delta_cap)
         if delta_cap < 1:
             raise ValueError(f"delta_cap must be >= 1: {delta_cap}")
+        # the original dissimilarity every inner engine scores in — for a
+        # sharded wrapper it lives on the inner engine's cfg, one level down
+        metric_cfg = engine_cfg
+        if engine == "sharded":
+            inner = engine_cfg.get("engine_cfg")
+            if inner is None:  # sharded's inline form: leftover keys = inner cfg
+                inner = {k: v for k, v in engine_cfg.items()
+                         if k not in ("engine", "shards", "mesh")}
+            metric_cfg = inner
+            if delta_cap < int(engine_cfg.get("shards", 2)):
+                raise ValueError(
+                    "live over sharded: delta_cap must be >= the shard count "
+                    "(compaction carries up to shards-1 remainder rows)"
+                )
         frozen = index_lib.build(engine, X, engine_cfg, device=X.device)
         gen = _Generation(
             frozen=frozen,
@@ -288,7 +304,7 @@ class LiveIndex:
         )
         return cls(
             gen, engine=engine, engine_cfg=engine_cfg,
-            metric=engine_cfg.get("metric", "euclidean"), delta_cap=delta_cap,
+            metric=metric_cfg.get("metric", "euclidean"), delta_cap=delta_cap,
             compact_deleted_frac=compact_deleted_frac, auto_compact=auto_compact,
             compact_mode=compact_mode,
         )
@@ -404,7 +420,11 @@ class LiveIndex:
 
         ``full`` rebuilds through the registry with the original
         ``engine_cfg``; ``refresh`` (infinity only; full elsewhere) keeps
-        the frozen Phi and rebuilds only the VP tree."""
+        the frozen Phi and rebuilds only the VP tree.  Over a ``sharded``
+        engine the trailing ``n % shards`` rows of the compacted corpus go
+        into the new generation's delta buffer instead of the frozen
+        segment; their slot ids equal their corpus positions, so the remap
+        stays positional."""
         with telem.span("compaction", engine=self.engine,
                         mode=mode or self.compact_mode):
             return self._compact_impl(mode)
@@ -421,21 +441,33 @@ class LiveIndex:
                             torch.as_tensor(gen.delta_X[:fill][alive_d], device=dev)])
         if corpus.shape[0] < 1:
             raise ValueError("compact: every row is tombstoned; nothing to build on")
+        carry = 0
+        if self.engine == "sharded":
+            shards = int(self.engine_cfg.get("shards", 2))
+            carry = corpus.shape[0] % shards
+            if corpus.shape[0] - carry < shards:
+                raise ValueError(
+                    f"compact: {corpus.shape[0]} alive rows cannot fill "
+                    f"{shards} shards"
+                )
+        frozen_part = corpus[: corpus.shape[0] - carry]
 
         if mode == "refresh" and gen.delta_Z is not None:
             Z = torch.cat([gen.frozen.Z[keep_f],
                            torch.as_tensor(gen.delta_Z[:fill][alive_d], device=dev)])
             frozen = gen.frozen.refresh(corpus, Z=Z)
         else:
-            frozen = index_lib.build(self.engine, corpus, self.engine_cfg, device=dev)
+            frozen = index_lib.build(self.engine, frozen_part, self.engine_cfg, device=dev)
 
         remap = np.full((gen.n_slots,), -1, np.int64)
         alive = np.concatenate([alive_f, alive_d])
         remap[alive] = np.arange(int(alive.sum()))
 
         # realign the side stores into LOCALS: nothing on self mutates until
-        # the single publish below
-        n_new = corpus.shape[0]
+        # the single publish below.  Alive order is the compacted corpus
+        # order is the new slot order (carried rows land in delta slots
+        # whose ids equal their corpus positions), so one gather realigns
+        n_new = frozen_part.shape[0]
         new_attrs = new_quant = None
         if self.attrs is not None:
             new_attrs = self.attrs.take(np.where(alive)[0], capacity=n_new + self.delta_cap)
@@ -444,17 +476,20 @@ class LiveIndex:
             # re-quantize from the compacted corpus (fresh scales), padded
             # back out to the new generation's slot capacity
             new_quant = quant_lib.QuantStore.build(corpus).take(
-                np.arange(n_new), capacity=n_new + self.delta_cap)
+                np.arange(corpus.shape[0]), capacity=n_new + self.delta_cap)
             index_lib.attach_quant_store(frozen, new_quant.take(np.arange(n_new)))
 
         new_gen = _Generation(
             frozen=frozen,
-            frozen_X=corpus,
+            frozen_X=frozen_part,
             delta_X=np.zeros((self.delta_cap, corpus.shape[1]), np.float32),
             delta_Z=self._fresh_delta_Z(frozen, self.delta_cap),
             tomb=np.zeros((n_new + self.delta_cap,), bool),
             gen_id=gen.gen_id + 1,
         )
+        if carry:  # carried rows land in delta slots 0..carry-1
+            new_gen.delta_X[:carry] = corpus[n_new:].cpu().numpy()
+            new_gen.fill = carry
         if self.chaos is not None:
             # the worst-case crash point: every rebuild cost paid, nothing
             # published

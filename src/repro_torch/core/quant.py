@@ -5,8 +5,9 @@ engine-facing container of a corpus's codes.
 
 ``scale = max(|x|) / 127``; ``code = clip(round(x / scale), -127, 127)``
 (``torch.round`` rounds half to even, as ``jnp.round`` does);
-``decode = code * scale``.  ``QuantStore.place`` (ShardedIndex's data-axis
-placement) waits for ``ShardedIndex``.
+``decode = code * scale``.  ``QuantStore.place`` records the sharded
+engine's row layout, and ``device_view(shard=s)`` then hands shard ``s``
+its rows of the codes and sq-norms as views (the scales are shared).
 """
 from __future__ import annotations
 
@@ -67,6 +68,8 @@ class QuantStore:
     scales: np.ndarray  # (d,) f32
     device: torch.device  # where device_view() puts them
     _dev: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    #: (shards, shard_size) once ``place`` put the store over row shards
+    layout: Optional[tuple[int, int]] = dataclasses.field(default=None, repr=False)
 
     @classmethod
     def build(cls, X, *, device: DeviceLike = None) -> "QuantStore":
@@ -93,16 +96,34 @@ class QuantStore:
     def invalidate(self) -> None:
         self._dev = None
 
-    def device_view(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def place(self, shards: int, shard_size: int) -> None:
+        """Record the sharded engine's row layout: ``shards`` consecutive
+        slices of ``shard_size`` rows, all on the store's one device (the
+        JAX package pins the rows on a mesh's data axis instead)."""
+        if shards * shard_size != self.rows:
+            raise ValueError(f"place: {shards} x {shard_size} rows != {self.rows}")
+        self.layout = (int(shards), int(shard_size))
+
+    def device_view(self, shard: Optional[int] = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(codes (rows, d) int8, scales (d,) f32, sqnorms (rows,) f32) on
         the store's device — ``sqnorms[i] = sum_j (codes[i,j] * scales[j])^2``,
-        the candidate-norm operand of the int8 kernel."""
+        the candidate-norm operand of the int8 kernel.  ``shard``: that
+        shard's rows of codes and sq-norms under ``place``'s layout, as
+        views, with the shared scales."""
         if self._dev is None:
             codes = torch.tensor(self.codes, device=self.device)
             scales = torch.tensor(self.scales, device=self.device)
             sqnorms = (decode(codes, scales) ** 2).sum(1)
             self._dev = (codes, scales, sqnorms)
-        return self._dev
+        if shard is None:
+            return self._dev
+        if self.layout is None:
+            raise ValueError("device_view(shard=...) needs place() first")
+        codes, scales, sqnorms = self._dev
+        lo = int(shard) * self.layout[1]
+        hi = lo + self.layout[1]
+        return codes[lo:hi], scales, sqnorms[lo:hi]
 
     def set_rows(self, start: int, X_rows, count: int) -> None:
         """Quantize ``count`` new rows in place at ``start`` with the

@@ -17,6 +17,11 @@ versions.  With a ``quant`` store attached (``index.attach_quant_store``)
 the beam's bucket scans read int8 codes of the embedding rows and the
 rerank prefilters its candidates on the store's codes.
 
+``shard_state`` / ``merge_shard_static`` / ``shard_search`` let
+``ShardedIndex`` run the engine over row shards: each shard's X, Z, Phi's
+params tree, VP tree and flattened beam state, searched as ``search``
+does (no quant store: infinity takes no ``quant=`` shard operand).
+
 Telemetry (``core/telemetry``): the ``embed``, ``traversal`` and
 ``rerank`` spans, ``comparisons_total{stage=...}`` per branch, and the
 beam's three stage counters with the call's wall time apportioned by
@@ -150,6 +155,13 @@ class InfinityIndex:
     #: int8 codes of X (``index.attach_quant_store``), or None
     quant: Optional[quant_lib.QuantStore] = dataclasses.field(
         default=None, repr=False, compare=False)
+
+    #: the best-first budget is a per-call gate, so ShardedIndex hands this
+    #: engine its exact per-shard share (remainder included)
+    shard_traced_budget = True
+    #: ShardedIndex passes the filter's (bucketed) global selectivity so the
+    #: per-shard rerank width scales as the unsharded search's does
+    shard_uses_selectivity = True
 
     # ------------------------------------------------------------------ build
     @classmethod
@@ -405,6 +417,99 @@ class InfinityIndex:
                  self._flat["Zf"], self._flat["zcodes"])
             )
         return total
+
+    # -------------------------------------------------------------- sharding
+    def shard_state(self):
+        """(arrays, static) for ``ShardedIndex``, in the JAX package's
+        layout: Phi as its params tree, the VP tree, and the flattened beam
+        state (pad-safe across shards: the stacker's -1 / +inf fills make
+        phantom nodes no child pointer reaches and phantom buckets no node
+        points to)."""
+        sd = self.search_defaults or {}
+        flat, Zf, _ = self._flat_view()
+        arrays = {
+            "X": self.X, "Z": self.Z, "phi": embed_lib.params_of(self.phi),
+            "vantage": self.tree.vantage, "mu": self.tree.mu,
+            "left": self.tree.left, "right": self.tree.right,
+            "fmu": flat.mu, "fcin": flat.child_in, "fcout": flat.child_out,
+            "frin": flat.rad_in, "frout": flat.rad_out, "fcent": flat.centroids,
+            "fbuckets": flat.bucket_rows, "fperm": flat.perm, "Zf": Zf,
+        }
+        static = {
+            "q": self.config.q, "metric": self.config.metric,
+            "depth": self.tree.depth, "flat_depth": flat.depth,
+            "leaf_size": flat.leaf_size, "mode": sd.get("mode", "auto"),
+            "rerank": int(sd.get("rerank") or 0),
+            "budget": sd.get("budget", sd.get("max_comparisons")),
+            "beam_width": sd.get("beam_width"), "bucket_cap": sd.get("bucket_cap"),
+        }
+        return arrays, static
+
+    @classmethod
+    def merge_shard_static(cls, statics: list[dict]) -> dict:
+        """Per-shard trees differ only in their depths — take the max (a
+        deeper loop bound only iterates on an empty frontier / node -1)."""
+        depth_keys = ("depth", "flat_depth")
+        merged = dict(statics[0])
+        for key in depth_keys:
+            merged[key] = max(s[key] for s in statics)
+        rest = {k: v for k, v in merged.items() if k not in depth_keys}
+        for s in statics[1:]:
+            if {k: v for k, v in s.items() if k not in depth_keys} != rest:
+                raise ValueError(f"shard statics disagree: {merged} vs {s}")
+        return merged
+
+    @classmethod
+    def shard_search(cls, state, Q, *, k, budget, static, budget_t=None,
+                     valid=None, sel=None):
+        """One shard's search.  ``budget`` is the shard's base share of the
+        per-query budget, ``budget_t`` its exact share (remainder included)
+        for the best-first gate; ``valid`` the shard's rows of the filter
+        mask; ``sel`` the GLOBAL bucketed selectivity that sizes the rerank
+        width.  The beam plans its knobs from the base share."""
+        plan_budget = budget if budget is not None else static.get("budget")
+        if budget_t is not None:
+            budget = budget_t
+        elif budget is None:
+            budget = static.get("budget")
+        rerank = int(static.get("rerank") or 0)
+        mode = static.get("mode", "auto")
+        Z = state["Z"]
+        Zq = embed_lib.apply_params(state["phi"], Q)
+        K = max(k, rerank)
+        if valid is not None and rerank:
+            K = filter_lib.scaled_width(K, 1.0 if sel is None else sel, Z.shape[0])
+        tree = vptree_lib.VPTree(vantage=state["vantage"], mu=state["mu"],
+                                 left=state["left"], right=state["right"],
+                                 depth=int(static["depth"]))
+        if valid is None and cls._use_descend(mode, static["q"], K):
+            bi, _, comps = vptree_lib.descend_infty(tree, Zq, X=Z, metric="euclidean")
+            idx = bi[:, None]
+        elif cls._use_beam(mode, Q.shape[0]):
+            if rerank:
+                K = max(K, quant_lib.shortlist_width(k, Z.shape[0], mult=8))
+            flat = vptree_lib.FlatVPTree(
+                mu=state["fmu"], child_in=state["fcin"], child_out=state["fcout"],
+                rad_in=state["frin"], rad_out=state["frout"],
+                bucket_rows=state["fbuckets"], centroids=state["fcent"],
+                perm=state["fperm"], depth=int(static["flat_depth"]),
+                leaf_size=int(static["leaf_size"]))
+            idx, _, comps = vptree_lib.search_beam(
+                flat, Zq, q=static["q"], k=K, X=state["Zf"], metric="euclidean",
+                max_comparisons=None if plan_budget is None else int(plan_budget),
+                beam_width=static.get("beam_width"), bucket_cap=static.get("bucket_cap"),
+                valid=valid)
+        else:
+            idx, _, comps = vptree_lib.search_best_first(
+                tree, Zq, q=static["q"], k=K, X=Z, metric="euclidean",
+                max_comparisons=budget, valid=valid)
+        X, metric = state["X"], static["metric"]
+        if rerank and K > k:
+            idx, dists = scan_lib.topk_candidates(Q, idx, X, k=k, metric=metric)
+            comps = comps + K
+        else:
+            idx, dists = scan_lib.topk_candidates(Q, idx[:, :k], X, k=k, metric=metric)
+        return idx, dists, comps.int()
 
     # -------------------------------------------------------------- snapshot
     def snapshot_state(self):

@@ -1,2 +1,3 @@
-"""Distribution substrate of the port.  Only the single-device embedding
-lookup is here; sharding waits for ``ShardedIndex``."""
+"""Distribution substrate of the port: the single-device embedding lookup
+and the roofline accounting of the kernels (``roofline``).  Sharded search
+holds every shard on one device (``core/index.ShardedIndex``)."""

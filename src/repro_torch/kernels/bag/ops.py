@@ -1,15 +1,19 @@
 """Public embedding-bag entry: the CUDA kernel for CUDA tensors, the plain
-version for CPU tensors (never a fallback for a CUDA tensor)."""
+version for CPU tensors (never a fallback for a CUDA tensor).  Each call
+reports its work to an open ``dist/roofline`` capture."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from repro_torch.dist import roofline
 from repro_torch.kernels.bag.bag import embedding_bag_cuda
 from repro_torch.kernels.bag.ref import embedding_bag_ref
 
 
+@roofline.reports(lambda a: roofline.bag_work(
+    a.ids, a.table.shape[1], weighted=a.weights is not None, elem=a.table.element_size()))
 def embedding_bag(
     table: torch.Tensor,
     ids: torch.Tensor,

@@ -3,6 +3,7 @@ blocked merges for CPU tensors (never a fallback for a CUDA tensor).
 
 ``topk`` serves the f32 regimes (matmul and cube families); ``topk_quant``
 the int8 corpus-code regime fed by ``core/quant.QuantStore.device_view()``.
+Each call reports its work to an open ``dist/roofline`` capture.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist import roofline
 from repro_torch.kernels.pdist.pdist import CUBE_METRICS, MATMUL_METRICS
 from repro_torch.kernels.topk.ref import (
     DEFAULT_BLOCK,
@@ -25,6 +27,9 @@ __all__ = ["topk", "topk_quant", "SUPPORTED", "MATMUL_METRICS", "CUBE_METRICS",
            "QUANT_METRICS"]
 
 
+@roofline.reports(lambda a: roofline.topk_work(
+    a.X.shape[0], a.Y.shape[0], a.X.shape[1], a.k, cube=a.metric in CUBE_METRICS,
+    masked=a.valid is not None))
 def topk(
     X: torch.Tensor,
     Y: torch.Tensor,
@@ -44,6 +49,8 @@ def topk(
                     valid=valid, block=block)
 
 
+@roofline.reports(lambda a: roofline.topk_int8_work(
+    a.Q.shape[0], a.codes.shape[0], a.codes.shape[1], a.k, masked=a.valid is not None))
 def topk_quant(
     Q: torch.Tensor,
     codes: torch.Tensor,

@@ -5,11 +5,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --engine nsw --live \
       --delta-cap 512 --snapshot /tmp/idx
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine brute --shards 2
 
 ``SearchServer`` is registry-driven: any engine key from ``core/index``
 (brute / ivf_flat / ivf_pq / nsw / infinity) behind one ``query`` method,
-on ``device`` (default CUDA; the CLI's ``--device``).  Query batches are
-padded on the host to a power-of-two bucket (floor 8, repeating the last
+on ``device`` (default CUDA; the CLI's ``--device``); ``shards=S > 1``
+serves it as ``ShardedIndex`` over S row shards, all on that device.
+Query batches are padded on the host to a power-of-two bucket (floor 8, repeating the last
 row) and copied to the device once; the answer is sliced back.  The pad
 decides the traversal: the infinity engine takes the beam for batches of
 64 or more, so a batch of 40 is served padded to 64, by the beam.
@@ -25,10 +27,13 @@ adds the ``quant`` registry key.
 
 Fault tolerance: ``query(deadline_ms=...)`` shrinks the comparison budget
 with the remaining deadline (``core/backoff.degraded_budget``) and retries
-transient faults with capped exponential backoff; every answer is a
-``ServedResult``.  The server runs a SERVING -> DEGRADED -> RECOVERING
-health machine: ``snapshot_dir=`` keeps a sha256-verified last-good
-snapshot that a failed swap restores.  ``chaos=`` arms a
+transient faults with capped exponential backoff; a shard that stays dead
+(``core/chaos.ShardFault``) is masked out of the merge and the survivors
+answer, stamped ``degraded`` with ``shards_answered`` < ``shards_total``.
+Every answer is a ``ServedResult``.  The server runs a SERVING -> DEGRADED
+-> RECOVERING health machine (a masked shard walks it to DEGRADED; the
+next full answer back to SERVING): ``snapshot_dir=`` keeps a
+sha256-verified last-good snapshot that a failed swap restores.  ``chaos=`` arms a
 ``core/chaos.FaultPlan``; ``probe=`` an online recall probe
 (``core/probes``) whose ground truth is ``core/scan.topk_scan``.
 
@@ -36,12 +41,10 @@ The dispatch span synchronises the device before it closes, so latency,
 ``search_latency`` and the stats percentiles time the search, not its
 launches.  ``jit_cache_*`` counters keep JAX's names and keys ``(engine,
 bucket, k)``; in the port they count first-seen buckets (nothing is
-compiled).
-
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``shards > 1`` (``ShardedIndex``), ``capture_roofline``
-(``core/profile.py``) and the async runtime with its HTTP front
-(``launch/runtime.py``).
+compiled).  ``capture_roofline`` profiles the engine's batched search
+through ``core/profile`` (analytic flops and bytes against the H100's
+peaks, timed by CUDA events).  ``launch/runtime`` puts an admission queue,
+a batcher and an HTTP front before ``query``.
 """
 from __future__ import annotations
 
@@ -65,9 +68,6 @@ from repro_torch.core import probes as probes_lib
 from repro_torch.core import telemetry as telem
 from repro_torch.data import synthetic
 from repro_torch.device import DeviceLike, resolve_device, sync
-
-#: the ROADMAP item that brings ``capture_roofline``
-PROFILE_ITEM = "ROADMAP.md Queue 1 item 3 (core/profile.py)"
 
 
 def _bucket(n: int, floor: int = 8) -> int:
@@ -114,12 +114,15 @@ class LatencyRing:
 class ServedResult(NamedTuple):
     """A ``SearchResult`` on the host plus the serving-layer provenance.
 
-    ``retries`` counts transparent re-attempts this request absorbed;
-    ``deadline_met`` is False when the answer returned after its deadline.
-    ``degraded`` / ``shards_answered`` / ``shards_total`` keep the JAX
-    package's shape (one shard until ``ShardedIndex`` is ported);
-    ``queue_ms`` / ``outcome`` are the async runtime's (0 / ``"ok"`` for
-    direct ``query`` calls)."""
+    ``degraded`` is True when a dead shard was masked out of the merge:
+    ``idx`` / ``dist`` then cover only the ``shards_answered`` surviving
+    shards' rows of ``shards_total``.  ``retries`` counts transparent
+    re-attempts this request absorbed; ``deadline_met`` is False when the
+    answer returned after its deadline.  ``queue_ms`` is the time the
+    request waited in the async runtime's queue and ``outcome`` tells a
+    computed answer (``"ok"``) from an explicit shed (``"shed_expired"``,
+    ``"shed_breaker"``, ``"shed_shutdown"``: idx -1 rows, 0 comparisons);
+    direct ``query`` calls carry 0 / ``"ok"``."""
 
     idx: np.ndarray  # (B, k) int32, -1 = no result
     dist: np.ndarray  # (B, k) f32 ascending
@@ -137,28 +140,31 @@ class ServedResult(NamedTuple):
 class FaultPolicy:
     """The serving controller's knobs (``SearchServer(policy=...)``):
     ``max_retries`` bounds transparent re-attempts per request, backoff
-    between them is capped exponential, ``budget_floor`` floors the
-    deadline->budget ladder.  (JAX's ``give_up_frac``, when to mask a
-    failing shard, arrives with ``ShardedIndex``.)"""
+    between them is capped exponential; ``give_up_frac``: once less than
+    this fraction of the deadline remains, a failing shard is masked out
+    instead of retried; ``budget_floor`` floors the deadline->budget
+    ladder."""
 
     max_retries: int = 2
     backoff_base_s: float = 0.005
     backoff_cap_s: float = 0.05
+    give_up_frac: float = 0.25
     budget_floor: int = 8
 
 
 #: the health state machine's states: SERVING — full answers; DEGRADED —
-#: awaiting repair; RECOVERING — a restore of the last good snapshot is in
-#: flight.
+#: answering from surviving shards / awaiting repair; RECOVERING — a
+#: restore of the last good snapshot is in flight.
 HEALTH_STATES = ("SERVING", "DEGRADED", "RECOVERING")
 
 
 class SearchServer:
     """Build once, answer batched queries — the deployable object.
 
-    ``swap`` rebuilds a different engine over the same corpus.  ``query``
-    pads the incoming batch to a power-of-two bucket and slices the answer
-    back.  ``chaos=`` arms a ``core/chaos.FaultPlan`` (or its dict sugar);
+    ``swap`` rebuilds a different engine (or shard count) over the same
+    corpus.  ``query`` pads the incoming batch to a power-of-two bucket and
+    slices the answer back, retrying transient faults and masking dead
+    shards.  ``chaos=`` arms a ``core/chaos.FaultPlan`` (or its dict sugar);
     ``snapshot_dir=`` keeps a sha256-verified last-good snapshot that a
     failed ``swap`` restores (health walks SERVING -> DEGRADED ->
     RECOVERING -> SERVING).
@@ -201,6 +207,7 @@ class SearchServer:
     def _init_fault_state(self) -> None:
         self.health = "SERVING"
         self.health_log: list[str] = ["SERVING"]
+        self._dead_shards: set[int] = set()
         self._last_good: Optional[str] = None
         self._snap_seq = 0
         # one lock for every cross-thread mutable serving stat (re-entrant:
@@ -280,9 +287,6 @@ class SearchServer:
         """(Re)build the serving index over the held corpus.  ``live``/
         ``delta_cap``/``quant`` (and the attribute columns given at
         construction) stick across swaps unless overridden."""
-        if shards > 1:
-            raise index_lib.not_ported(f"serving over {shards} shards",
-                                       index_lib.UNPORTED["sharded"])
         if cfg is None:
             cfg = default_cfg(engine, budget=self.DEFAULT_BUDGET,
                               rerank=self.DEFAULT_RERANK)
@@ -294,11 +298,15 @@ class SearchServer:
         else:
             self.delta_cap = getattr(self, "delta_cap", 1024)
         t0 = time.perf_counter()
-        inner_cfg = dict(cfg or {})
+        if shards > 1:
+            inner, inner_cfg = "sharded", {
+                "engine": engine, "shards": shards, "engine_cfg": dict(cfg or {})}
+        else:
+            inner, inner_cfg = engine, dict(cfg or {})
         attrs = self.attr_values
         try:
             if self.live:
-                top_cfg = {"engine": engine, "engine_cfg": inner_cfg,
+                top_cfg = {"engine": inner, "engine_cfg": inner_cfg,
                            "delta_cap": self.delta_cap}
                 if attrs:
                     top_cfg["attrs"] = attrs
@@ -314,7 +322,7 @@ class SearchServer:
                     inner_cfg["quant"] = True
                 if self.chaos is not None:
                     inner_cfg["chaos"] = self.chaos
-                built = index_lib.build(engine, self.corpus, inner_cfg, device=self.device)
+                built = index_lib.build(inner, self.corpus, inner_cfg, device=self.device)
         except chaos_lib.FaultError:
             self._count_fault("faults")
             self._heal(f"swap({engine!r}) build poisoned")
@@ -322,6 +330,7 @@ class SearchServer:
         self.index = built
         self.engine = engine
         self.shards = shards
+        self._dead_shards.clear()
         self.build_s = time.perf_counter() - t0
         self._reset_window()
 
@@ -351,12 +360,19 @@ class SearchServer:
         srv.live = index.registry_name == "live"
         srv.quant = getattr(index, "quant", None) is not None
         srv.delta_cap = getattr(index, "delta_cap", 1024)
-        srv.shards = 1
-        srv.engine = index.engine if srv.live else index.registry_name
+        if srv.live and index.engine == "sharded":
+            srv.engine = index.engine_cfg.get("engine", "sharded")
+            srv.shards = int(index.engine_cfg.get("shards", 2))
+        elif srv.live:
+            srv.engine, srv.shards = index.engine, 1
+        elif index.registry_name == "sharded":
+            srv.engine, srv.shards = index.engine, index.shards
+        else:
+            srv.engine, srv.shards = index.registry_name, 1
         if srv.live:
             srv.corpus = torch.as_tensor(index.corpus(), device=dev)
         else:
-            srv.corpus = index.X
+            srv.corpus = index_lib.corpus_of(index)
         # carry restored attribute columns across future swap() rebuilds
         # (live stores are slot-aligned: gather the alive slots, whose
         # order is exactly corpus()'s logical row order)
@@ -385,8 +401,12 @@ class SearchServer:
         attribute columns the server was built with.  ``record=False``
         keeps a warm-up call out of the latency record.  ``deadline_ms``
         arms the degradation controller: the comparison budget shrinks with
-        the remaining deadline on a pow2 ladder and transient faults retry
-        with capped exponential backoff while time allows."""
+        the remaining deadline on a pow2 ladder, transient faults retry
+        with capped exponential backoff while time allows, and a shard that
+        stays dead is masked out of the merge so the survivors still answer
+        (``degraded``, ``shards_answered`` < ``shards_total``).  Without a
+        deadline the same retry / mask logic runs, without budget
+        shrinking."""
         raw_batch = batch  # the probe buffers from the caller's view
         arr = _host(batch)
         B = arr.shape[0]
@@ -410,18 +430,42 @@ class SearchServer:
                     engine=self.engine, scope="server", bucket=Bp)
         pol = self.policy
         dl = backoff_lib.Deadline(deadline_ms)
+        S = max(1, int(self.shards)) if not self.live else 1
+        excluded: set[int] = set()
         retries = 0
         t0 = time.perf_counter()
         while True:
             eff_budget = backoff_lib.degraded_budget(
                 budget, dl.fraction_left(), floor=pol.budget_floor)
+            kw = {"budget": eff_budget, "filter": filter}
+            if excluded:
+                kw["shard_alive"] = tuple(s not in excluded for s in range(S))
             try:
                 # the span closes (error=True) when a chaos fault escapes
                 with telem.span("dispatch", engine=self.engine, bucket=Bp):
-                    idx, dist, comps = self.index.search(batch, k=k, budget=eff_budget,
-                                                         filter=filter)
+                    idx, dist, comps = self.index.search(batch, k=k, **kw)
                     sync(self.device)
                 break
+            except chaos_lib.ShardFault as e:
+                self._count_fault("faults")
+                telem.count("faults_total", engine=self.engine, kind="shard")
+                known_dead = e.shard in self._dead_shards
+                out_of_time = dl.fraction_left() < pol.give_up_frac
+                if known_dead or out_of_time or retries >= pol.max_retries:
+                    # mask the shard out and answer from the survivors: the
+                    # request's remaining time goes to computing an answer
+                    excluded.add(e.shard)
+                    if len(excluded) >= S:
+                        raise  # every shard down: nothing left to answer from
+                    with self._state_lock:
+                        self._dead_shards.add(e.shard)
+                    self._set_health("DEGRADED")
+                    continue  # immediately, no sleep
+                retries += 1
+                self._count_fault("retries")
+                telem.count("retries_total", engine=self.engine, kind="shard")
+                time.sleep(backoff_lib.backoff_s(
+                    retries - 1, base_s=pol.backoff_base_s, cap_s=pol.backoff_cap_s))
             except chaos_lib.TransientFault:
                 self._count_fault("faults")
                 telem.count("faults_total", engine=self.engine, kind="transient")
@@ -432,6 +476,16 @@ class SearchServer:
                 telem.count("retries_total", engine=self.engine, kind="transient")
                 time.sleep(backoff_lib.backoff_s(
                     retries - 1, base_s=pol.backoff_base_s, cap_s=pol.backoff_cap_s))
+        if not excluded and self._dead_shards:
+            # a full, clean answer proves every shard is back: self-heal
+            with self._state_lock:
+                self._dead_shards.clear()
+            self._count_fault("recoveries")
+            self._set_health("SERVING")
+        degraded = bool(excluded)
+        if degraded:
+            self._count_fault("degraded_queries")
+            telem.count("degraded_total", engine=self.engine)
         deadline_met = not dl.expired()
         if not deadline_met:
             self._count_fault("deadline_misses")
@@ -442,13 +496,14 @@ class SearchServer:
                 self._lat.append(dt, B)
                 self._queries += B
                 self._batches += 1
-            telem.observe("search_latency", dt, engine=self.engine, shards=1)
+            telem.observe("search_latency", dt, engine=self.engine, shards=S)
             telem.count("queries_total", B, engine=self.engine)
             if deadline_ms is not None:
                 telem.set_gauge("deadline_slack_frac", dl.fraction_left(),
                                 engine=self.engine)
         res = ServedResult(
             idx[:B].cpu().numpy(), dist[:B].cpu().numpy(), comps[:B].cpu().numpy(),
+            degraded=degraded, shards_answered=S - len(excluded), shards_total=S,
             retries=retries, deadline_met=deadline_met,
         )
         if record and self._probe is not None:
@@ -551,7 +606,7 @@ class SearchServer:
             self._count_fault("quality_breaches")
             telem.count("quality_degraded_total", engine=self.engine)
             self._set_health("DEGRADED")
-        elif trans == "recover" and self.health != "SERVING":
+        elif trans == "recover" and not self._dead_shards and self.health != "SERVING":
             self._count_fault("recoveries")
             self._set_health("SERVING")
 
@@ -598,9 +653,22 @@ class SearchServer:
     # --------------------------------------------------- roofline profiling
     def capture_roofline(self, *, batch: Optional[int] = None, k: int = 10,
                          budget: Optional[int] = None) -> dict:
-        """Profile the current engine's batched search — waits for the
-        port of ``core/profile.py``."""
-        raise index_lib.not_ported("SearchServer.capture_roofline", PROFILE_ITEM)
+        """Profile the current engine's batched search at a serving bucket
+        shape through ``core/profile.capture_search``: the ``roofline_*``
+        gauges land in the telemetry registry and the profile's row is
+        returned, keyed by its program name.  ``batch`` defaults to the
+        largest bucket this engine served (64 before any)."""
+        from repro_torch.core import profile as profile_lib
+
+        if batch is None:
+            seen = [b for (e, b, _) in self._buckets_seen if e == self.engine]
+            batch = max(seen) if seen else 64
+        n = int(self.corpus.shape[0])
+        idx = torch.arange(int(batch), device=self.corpus.device) % n
+        prof = profile_lib.capture_search(
+            self.index, self.corpus[idx], k=k, budget=budget, engine=self.engine,
+            labels={"shards": self.shards})
+        return {prof.name: prof.as_row()}
 
     # ------------------------------------------------------------- mutation
     def _live_index(self):
@@ -674,6 +742,8 @@ class SearchServer:
                 "build_s": round(self.build_s, 3),
                 "health": self.health,
             }
+            if self._dead_shards:
+                out["dead_shards"] = sorted(self._dead_shards)
             if any(self.fault_counters.values()):
                 out["faults"] = dict(self.fault_counters)
         if self.chaos is not None:
@@ -725,7 +795,7 @@ class SearchServer:
                 seen.add(b)
                 self.query(qb, k=k, budget=budget, filter=filter, record=False)
         lat, comps, n_q = [], [], 0
-        n_missed = n_retries = 0
+        n_degraded = n_missed = n_retries = 0
         for qb in batches:
             t0 = time.perf_counter()
             res = self.query(qb, k=k, budget=budget, filter=filter,
@@ -733,6 +803,7 @@ class SearchServer:
             lat.append(time.perf_counter() - t0)
             comps.append(float(res.comparisons.mean()))
             n_q += res.idx.shape[0]
+            n_degraded += int(res.degraded)
             n_missed += int(not res.deadline_met)
             n_retries += res.retries
         lat_ms = np.asarray(lat) * 1e3
@@ -749,8 +820,8 @@ class SearchServer:
             "memory_bytes": self.index.memory_bytes(),
             "build_s": round(self.build_s, 3),
         }
-        if deadline_ms is not None or n_retries:
-            out.update(deadline_ms=deadline_ms, degraded_batches=0,
+        if deadline_ms is not None or n_degraded or n_retries:
+            out.update(deadline_ms=deadline_ms, degraded_batches=n_degraded,
                        deadline_misses=n_missed, retries=n_retries,
                        health=self.health)
         return out
@@ -789,8 +860,8 @@ def main(argv=None) -> None:
                     help="print every registered engine key with a one-line "
                          "summary, then exit")
     ap.add_argument("--shards", type=int, default=1,
-                    help="data-shard the corpus over this many devices (not "
-                         "ported yet: more than 1 raises)")
+                    help="row-shard the corpus into this many shards (all on "
+                         "the one device)")
     ap.add_argument("--budget", type=int, default=256,
                     help="per-query comparison budget (engine-interpreted)")
     ap.add_argument("--rerank", type=int, default=96,

@@ -964,3 +964,28 @@ def test_store_round_trip_on_card(cuda, serve_snapshots, tmp_path):
             assert sorted(a.files) == sorted(b.files)
             for key in a.files:
                 np.testing.assert_array_equal(a[key], b[key], err_msg=f"{name}: {key}")
+
+
+# ------------------------------------------------------------ sharded engines
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_brute_equals_one_shard_on_the_card(cuda, shards):
+    """Every shard on the card: S = 2 / 4 brute answers as one shard does
+    (f32 ids equal but near ties), and its answer on the card is the CPU
+    answer; quantized shards never rank worse than one quantized shard."""
+    X = torch.as_tensor(synthetic.make("manifold", 4096 + 64, seed=3)[:, :32].copy())
+    Y, Q = X[:4096], X[4096:]
+    one = index_lib.build("brute", Y, {}, device=cuda).search(Q.to(cuda), k=11)
+    sh = index_lib.build("sharded", Y, {"engine": "brute", "shards": shards}, device=cuda)
+    _build.reset_launches()
+    res = sh.search(Q.to(cuda), k=10)
+    torch.cuda.synchronize()
+    assert _build.launches()["topk/f32"] == shards
+    assert_same_ids(res.idx, res.dist, one.idx[:, :10], one.dist[:, :10])
+    cpu = index_lib.build("sharded", Y, {"engine": "brute", "shards": shards},
+                          device="cpu").search(Q, k=10)
+    assert_same_ids(res.idx, res.dist, cpu.idx, cpu.dist)
+    qone = index_lib.build("brute", Y, {"quant": True}, device=cuda).search(Q.to(cuda), k=10)
+    qsh = index_lib.build("sharded", Y, {"engine": "brute", "shards": shards, "quant": True},
+                          device=cuda).search(Q.to(cuda), k=10)
+    assert bool((qsh.dist <= qone.dist + 5e-4 + 1e-5 * qone.dist.abs()).all())

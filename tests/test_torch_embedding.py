@@ -51,6 +51,20 @@ def test_apply_with_jax_params(normalisers):
     assert phi.layers[0].weight.shape == (16, 12)  # (dout, din): JAX's w transposed
 
 
+@pytest.mark.parametrize("normalisers", [True, False])
+def test_params_tree_form_equals_the_module(normalisers):
+    """The sharded engine runs Phi from its params tree (``params_of`` /
+    ``apply_params``); the unsharded one runs the module.  Both must give
+    the same bits, or sharded answers drift from unsharded ones."""
+    params = _jax_params(normalisers=normalisers)
+    x = torch.as_tensor(np.random.default_rng(2).normal(size=(30, 12)).astype(np.float32))
+    phi = phi_from_params(_np_params(params), CPU)
+    tree = temb.params_of(phi)
+    assert ("x_mean" in tree) == normalisers
+    assert tree["layers"][0]["w"].shape == (12, 16)  # JAX's (din, dout)
+    assert torch.equal(temb.apply_params(tree, x), temb.apply(phi, x))
+
+
 def test_gelu_is_the_tanh_form():
     x = np.linspace(-5, 5, 101).astype(np.float32)
     ref = np.asarray(jax.nn.gelu(jnp.asarray(x)))

@@ -183,6 +183,7 @@ def test_live_rejects_bad_config_as_jax(data):
         with pytest.raises(err) as te:
             tindex.build("live", X, dict(bad), device=CPU)
         assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="ShardedIndex"):
-        tindex.build("live", X, {"engine": "sharded"}, device=CPU)
+    # over sharded (tests/test_torch_sharded.py holds it to JAX's answers)
+    over = tindex.build("live", X, {"engine": "sharded", "delta_cap": 4}, device=CPU)
+    assert over.stats()["frozen_size"] == X.shape[0]
     assert isinstance(tindex.build("live", X, {}, device=CPU), tlive.LiveIndex)

@@ -106,11 +106,12 @@ def test_snapshot_round_trips(pair):
 
 def test_registry_lists_the_five_engines(data):
     X, _, _ = data
-    # the five engines and the live wrapper; ShardedIndex is not ported
-    assert tindex.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "live", "nsw")
-    assert tindex.available() == tuple(k for k in jindex.available() if k != "sharded")
-    with pytest.raises(NotImplementedError, match="ShardedIndex"):
-        tindex.build("sharded", X, {"engine": "nsw", "shards": 2}, device=CPU)
+    # the five engines, the live wrapper and the sharded one, as JAX's
+    assert tindex.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "live",
+                                  "nsw", "sharded")
+    assert tindex.available() == jindex.available()
+    sh = tindex.build("sharded", X, {"engine": "nsw", "shards": 2}, device=CPU)
+    assert sh.shards == 2 and sh.engine == "nsw"
     eng = tindex.build("nsw", X, {"chaos": {"seed": 0, "rules": [
         {"site": "search", "start": 0, "stop": 1}]}}, device=CPU)
     with pytest.raises(tchaos.TransientFault):

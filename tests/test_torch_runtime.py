@@ -1,0 +1,513 @@
+"""Port twins of ``tests/test_runtime.py``: ``repro_torch.launch.runtime``
+in front of the port's ``SearchServer`` on the CPU, each test as the JAX
+package's.
+
+Covers: bit-exact parity with the synchronous path, bounded admission
+(capacity rejections with retry hints), shed-before-compute of expired
+deadlines, EDF ordering, watermark backpressure walking health + budget,
+circuit breaking driven by the chaos ``slow_search`` site, SearchServer
+counter consistency under concurrent worker threads (the §18 thread-safety
+fix), the multi-process HTTP socket path, and the open-loop overload
+acceptance run (≥2× measured saturation: bounded p99 for admitted work,
+explicit outcomes for everything else, recall of admitted answers held).
+"""
+import json
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import chaos as chaos_lib  # noqa: E402
+from repro_torch.launch import serve as serve_lib  # noqa: E402
+from repro_torch.launch.runtime import (  # noqa: E402
+    BoundedQueue, OverloadPolicy, Rejected, ServingRuntime, _Request,
+    start_http_front,
+)
+
+CPU = "cpu"
+
+N, D = 400, 16
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(7)
+    return rng.standard_normal((N, D)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def server(corpus):
+    return serve_lib.SearchServer(corpus, engine="brute", device=CPU)
+
+
+def _mkreq(seq, k=5, dl_abs=None):
+    return _Request(np.zeros((D,), np.float32), k, dl_abs, None, None, seq)
+
+
+# ------------------------------------------------------------ BoundedQueue
+
+def test_queue_edf_order_within_bucket():
+    q = BoundedQueue(capacity=8)
+    now = time.monotonic()
+    # submit out of deadline order; None-deadline goes last, FIFO ties
+    for seq, dl in [(0, now + 9.0), (1, now + 1.0), (2, None), (3, now + 5.0)]:
+        assert q.offer(("b",), _mkreq(seq, dl_abs=dl))
+    key, batch = q.take_batch(max_batch=8, flush_s=0.0)
+    assert [r.seq for r in batch] == [1, 3, 0, 2]
+
+
+def test_queue_capacity_and_depth():
+    q = BoundedQueue(capacity=2)
+    assert q.offer(("b",), _mkreq(0))
+    assert q.offer(("b",), _mkreq(1))
+    assert not q.offer(("b",), _mkreq(2))  # full: refused, not queued
+    assert q.depth() == 2
+    _, batch = q.take_batch(1, 0.0)
+    assert len(batch) == 1 and q.depth() == 1
+    assert q.offer(("b",), _mkreq(3))  # space again
+
+
+def test_queue_buckets_flush_separately():
+    q = BoundedQueue(capacity=8)
+    q.offer((5, None), _mkreq(0, k=5))
+    time.sleep(0.002)
+    q.offer((9, None), _mkreq(1, k=9))
+    key1, b1 = q.take_batch(8, 0.0)
+    key2, b2 = q.take_batch(8, 0.0)
+    assert key1 == (5, None) and key2 == (9, None)  # oldest head first
+    assert [r.k for r in b1] == [5] and [r.k for r in b2] == [9]
+
+
+def test_queue_size_triggers_flush_before_timeout():
+    q = BoundedQueue(capacity=8)
+    for s in range(4):
+        q.offer(("b",), _mkreq(s))
+    t0 = time.monotonic()
+    _, batch = q.take_batch(max_batch=4, flush_s=30.0)  # size reached: no wait
+    assert len(batch) == 4
+    assert time.monotonic() - t0 < 1.0
+
+
+# ------------------------------------------------------- runtime lifecycle
+
+def test_parity_with_direct_query(server, corpus):
+    run = ServingRuntime(server, OverloadPolicy(max_batch=8, flush_ms=2.0))
+    run.start()
+    try:
+        tickets = [run.submit(corpus[i], k=10) for i in range(12)]
+        results = [t.result(timeout=30) for t in tickets]
+    finally:
+        run.stop()
+    direct = server.query(corpus[:12], k=10)
+    for i, r in enumerate(results):
+        assert r.outcome == "ok"
+        np.testing.assert_array_equal(r.idx[0], direct.idx[i])
+        assert r.queue_ms >= 0.0
+
+
+def test_admission_rejects_at_capacity_with_hint(server, corpus):
+    run = ServingRuntime(server, OverloadPolicy(capacity=4))  # NOT started
+    for i in range(4):
+        run.submit(corpus[i], k=5)
+    with pytest.raises(Rejected) as ei:
+        run.submit(corpus[4], k=5)
+    assert ei.value.reason == "capacity"
+    assert ei.value.retry_after_s > 0.0
+    assert run.stats()["rejected_capacity"] == 1
+    run.stop()  # drains: queued work resolves shed_shutdown, not dropped
+    assert run.stats()["shed_shutdown"] == 4
+
+
+def test_expired_requests_shed_before_compute(server, corpus):
+    run = ServingRuntime(server, OverloadPolicy(flush_ms=1.0))  # not started
+    batches_before = server.stats()["batches"]
+    t_live = run.submit(corpus[0], k=5, deadline_ms=5_000.0)
+    t_dead = [run.submit(corpus[i], k=5, deadline_ms=1.0) for i in (1, 2)]
+    time.sleep(0.02)  # the 1ms deadlines lapse while queued
+    run.start()
+    try:
+        live = t_live.result(timeout=30)
+        dead = [t.result(timeout=30) for t in t_dead]
+    finally:
+        run.stop()
+    assert live.outcome == "ok" and live.deadline_met
+    for r in dead:
+        assert r.outcome == "shed_expired"
+        assert not r.deadline_met
+        assert (r.idx == -1).all() and int(r.comparisons.sum()) == 0
+    # the shed rows never reached the engine: one batch (the live one)
+    assert server.stats()["batches"] == batches_before + 1
+    assert run.stats()["shed_expired"] == 2
+
+
+def test_backpressure_walks_health_and_budget(server, corpus):
+    pol = OverloadPolicy(capacity=16, high_watermark=0.5, low_watermark=0.25,
+                         budget=256, budget_floor=8)
+    run = ServingRuntime(server, pol)  # not started: depth is ours to set
+    for i in range(12):  # fill 0.75 > high watermark
+        run.submit(corpus[i], k=5)
+    eff = run._backpressure()
+    assert server.health == "DEGRADED"
+    assert eff < 256  # headroom 0.25 -> budget halved down the ladder
+    run.queue.drain()  # depth 0 < low watermark
+    assert run._backpressure() == 256
+    assert server.health == "SERVING"
+
+
+# --------------------------------------------------- breaker x chaos wiring
+
+def _chaos_server(corpus, rules, **kw):
+    return serve_lib.SearchServer(
+        corpus, engine="brute",
+        chaos={"seed": 0, "rules": rules}, device=CPU, **kw)
+
+
+def test_breaker_trips_then_rejects_submits(corpus):
+    srv = _chaos_server(
+        corpus, [{"site": "slow_search", "kind": "error", "rate": 1.0}])
+    pol = OverloadPolicy(flush_ms=1.0, breaker_trip=2,
+                         breaker_cooldown_s=60.0)
+    run = ServingRuntime(srv, pol).start()
+    try:
+        for _ in range(2):  # two consecutive dispatch faults trip it
+            t = run.submit(corpus[0], k=5, deadline_ms=5_000.0)
+            with pytest.raises(chaos_lib.TransientFault):
+                t.result(timeout=30)
+        assert run.breaker.state == run.breaker.OPEN
+        with pytest.raises(Rejected) as ei:
+            run.submit(corpus[0], k=5)
+        assert ei.value.reason == "breaker"
+        assert ei.value.retry_after_s > 0.0
+        st = run.stats()
+        assert st["dispatch_faults"] == 2
+        assert st["breaker_trips"] == 1
+        assert st["rejected_breaker"] == 1
+        # the runtime-level site fired, deterministically
+        assert srv.chaos.counters["slow_search:error"] == 2
+    finally:
+        run.stop()
+
+
+def test_open_breaker_sheds_queued_work(corpus):
+    srv = _chaos_server(
+        corpus, [{"site": "slow_search", "kind": "error", "rate": 1.0}])
+    pol = OverloadPolicy(flush_ms=1.0, breaker_trip=1,
+                         breaker_cooldown_s=60.0)
+    run = ServingRuntime(srv, pol)  # not started: stage two buckets
+    t_bad = run.submit(corpus[0], k=5, deadline_ms=5_000.0)
+    time.sleep(0.002)  # the k=5 bucket is strictly older -> dispatches first
+    t_shed = run.submit(corpus[1], k=9, deadline_ms=5_000.0)
+    run.start()
+    try:
+        with pytest.raises(chaos_lib.TransientFault):
+            t_bad.result(timeout=30)  # first bucket faults, trips breaker
+        r = t_shed.result(timeout=30)  # second bucket fast-fails, explicit
+        assert r.outcome == "shed_breaker"
+        assert (r.idx == -1).all()
+        assert run.stats()["shed_breaker"] == 1
+    finally:
+        run.stop()
+
+
+# --------------------------------------- SearchServer counters under threads
+
+def test_fault_counters_consistent_under_concurrent_queries(corpus):
+    # chaos fires every engine call -> per-query fault/retry counts are
+    # exact; lost updates from the old unlocked `+= 1` shows up as a deficit
+    srv = _chaos_server(
+        corpus, [{"site": "search", "kind": "error", "rate": 1.0}],
+        policy=serve_lib.FaultPolicy(max_retries=2, backoff_base_s=1e-4,
+                                     backoff_cap_s=1e-3))
+    T, Q = 6, 10
+
+    def worker():
+        for _ in range(Q):
+            with pytest.raises(chaos_lib.TransientFault):
+                srv.query(corpus[:2], k=5, deadline_ms=None)
+
+    threads = [threading.Thread(target=worker) for _ in range(T)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    # per query: initial attempt + 2 retries, all fault -> 3 faults, 2 retries
+    assert srv.fault_counters["faults"] == T * Q * 3
+    assert srv.fault_counters["retries"] == T * Q * 2
+    assert srv.chaos.counters["search:error"] == T * Q * 3
+
+
+def test_latency_counters_consistent_under_concurrent_queries(corpus):
+    srv = serve_lib.SearchServer(corpus, engine="brute", device=CPU)
+    T, Q, B = 6, 15, 4
+    srv.query(corpus[:B], k=5)  # warm the (bucket, k) jit key once
+
+    def worker():
+        for _ in range(Q):
+            srv.query(corpus[:B], k=5)
+
+    threads = [threading.Thread(target=worker) for _ in range(T)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    st = srv.stats()
+    assert st["batches"] == 1 + T * Q
+    assert st["queries"] == (1 + T * Q) * B
+
+
+# ------------------------------------------------ multi-process socket path
+
+_CLIENT = r"""
+import json, random, sys, urllib.request
+url, n, d, seed = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+random.seed(seed)
+codes = {}
+for i in range(n):
+    q = [random.gauss(0, 1) for _ in range(d)]
+    body = json.dumps({"q": q, "k": 5, "deadline_ms": 10000}).encode()
+    req = urllib.request.Request(url + "/search", data=body,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            out = json.loads(resp.read())
+            assert out["outcome"] == "ok" and len(out["idx"]) == 5
+            codes[resp.status] = codes.get(resp.status, 0) + 1
+    except urllib.error.HTTPError as e:
+        codes[e.code] = codes.get(e.code, 0) + 1
+print(json.dumps(codes))
+"""
+
+
+def test_http_front_multiprocess_clients(server, corpus, tmp_path):
+    run = ServingRuntime(server, OverloadPolicy(max_batch=8, flush_ms=2.0))
+    run.start()
+    httpd = start_http_front(run, port=0)
+    port = httpd.server_address[1]
+    script = tmp_path / "client.py"
+    script.write_text(_CLIENT)
+    try:
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(script),
+                 f"http://127.0.0.1:{port}", "8", str(D), str(seed)],
+                stdout=subprocess.PIPE, text=True)
+            for seed in range(3)
+        ]
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+        assert all(p.returncode == 0 for p in procs)
+    finally:
+        httpd.shutdown()
+        run.stop()
+    codes = [json.loads(o) for o in outs]
+    # real sockets, separate client processes, all answered with 200s
+    assert all(c == {"200": 8} for c in codes), codes
+    assert run.stats()["completed"] >= 24
+
+
+def test_http_front_maps_rejections(server, corpus):
+    run = ServingRuntime(server, OverloadPolicy(capacity=2))  # not started
+    httpd = start_http_front(run, port=0)
+    port = httpd.server_address[1]
+    import urllib.error
+    import urllib.request
+
+    def post(payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/search",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        return urllib.request.urlopen(req, timeout=30)
+
+    def fill():  # these resolve shed_shutdown (504) when the test stops
+        try:
+            post({"q": corpus[0].tolist(), "k": 5})
+        except urllib.error.HTTPError:
+            pass
+
+    try:
+        for i in range(2):  # fill the queue (runtime not started)
+            threading.Thread(target=fill, daemon=True).start()
+        deadline = time.monotonic() + 5.0
+        while run.queue.depth() < 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            post({"q": corpus[0].tolist(), "k": 5})
+        assert ei.value.code == 429  # capacity -> 429 + Retry-After
+        assert float(ei.value.headers["Retry-After"]) > 0.0
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            post({"k": 5})  # malformed: no q
+        assert ei.value.code == 400
+    finally:
+        httpd.shutdown()
+        run.stop()
+
+
+# ------------------------------------------------- open-loop acceptance run
+
+def test_open_loop_overload_acceptance(corpus):
+    """Acceptance: at ≥2× measured saturation with per-request
+    deadlines, admitted requests answer within a bounded p99, everything
+    else sheds/rejects with an explicit outcome, the queue stays bounded,
+    and admitted answers keep recall@10 ≥ 0.9."""
+    spike_ms, deadline_ms = 10.0, 60.0
+    srv = _chaos_server(  # every dispatch pays a deterministic 10ms stall
+        corpus,
+        [{"site": "slow_search", "kind": "latency", "rate": 1.0,
+          "ms": spike_ms}])
+    pol = OverloadPolicy(capacity=64, max_batch=4, flush_ms=2.0,
+                         breaker_trip=10, breaker_cooldown_s=0.05)
+    run = ServingRuntime(srv, pol).start()
+    for b in (1, 2, 4):  # pre-warm every pow2 bucket the run can form
+        srv.query(corpus[:b], k=10, record=False)
+
+    # measured saturation: the batcher serves max_batch per stall window.
+    # The fastest of the calls sets it (JAX's twin takes their mean): a
+    # call slowed by other processes would understate saturation, and the
+    # offered load must stay at least twice what the batcher can serve.
+    reps = 5
+    calls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        srv.query(corpus[:pol.max_batch], k=10, record=False)
+        calls.append(time.perf_counter() - t0)
+    service_s = min(calls) + spike_ms / 1e3
+    sat_qps = pol.max_batch / service_s
+    offered_qps = 2.0 * sat_qps
+
+    rng = np.random.default_rng(11)
+    duration_s = 1.5
+    done_at = {}
+    tickets, t_submit, rejected = [], [], 0
+    t_start = time.monotonic()
+    next_t = t_start
+    i = 0
+    while True:
+        next_t += float(rng.exponential(1.0 / offered_qps))  # open loop
+        if next_t - t_start > duration_s:
+            break
+        lag = next_t - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        try:
+            t = run.submit(corpus[i % N], k=10, deadline_ms=deadline_ms)
+        except Rejected as e:
+            assert e.reason in ("capacity", "breaker")
+            assert e.retry_after_s > 0.0
+            rejected += 1
+        else:
+            seq = t.seq
+            t._future.add_done_callback(
+                lambda f, s=seq: done_at.setdefault(s, time.monotonic()))
+            tickets.append((i % N, time.monotonic(), t))
+            t_submit.append(time.monotonic())
+        i += 1
+    submitted = len(tickets)
+    results = [(qi, ts, t.seq, t.result(timeout=60)) for qi, ts, t in tickets]
+    run.stop()
+
+    # -- accounting: every request has an explicit fate, nothing silent
+    outcomes = {}
+    for _, _, _, r in results:
+        outcomes[r.outcome] = outcomes.get(r.outcome, 0) + 1
+    assert sum(outcomes.values()) == submitted
+    assert set(outcomes) <= {"ok", "shed_expired", "shed_breaker",
+                             "shed_shutdown"}
+    st = run.stats()
+    assert st["queue_depth"] == 0  # fully drained, never unbounded
+    assert st["admitted"] == submitted
+
+    # -- at 2x saturation the system MUST refuse work, not absorb it
+    shed = submitted - outcomes.get("ok", 0)
+    assert shed + rejected > 0
+    shed_rate = (shed + rejected) / (submitted + rejected)
+
+    # -- bounded p99 for admitted-and-answered requests: queue wait is
+    #    capped by the deadline (expired work sheds pre-compute), so e2e
+    #    latency is bounded by deadline + one dispatch (stall + compute)
+    ok_lat_ms = [(done_at[seq] - ts) * 1e3
+                 for _, ts, seq, r in results if r.outcome == "ok"]
+    assert len(ok_lat_ms) > 0  # overload never starved admitted work
+    p99 = float(np.percentile(ok_lat_ms, 99))
+    bound_ms = deadline_ms + 20 * (spike_ms + 1e3 * service_s)
+    assert p99 <= bound_ms, (p99, bound_ms)
+
+    # -- goodput: answers that also met their deadline
+    met = sum(1 for _, _, _, r in results
+              if r.outcome == "ok" and r.deadline_met)
+    goodput_qps = met / duration_s
+    assert goodput_qps > 0.0
+
+    # -- recall@10 of admitted answers (brute is exact per effective view)
+    direct = srv.query(corpus[: min(N, 64)], k=10, record=False)
+    hits = total = 0
+    for qi, _, _, r in results:
+        if r.outcome != "ok" or qi >= 64:
+            continue
+        hits += len(set(r.idx[0].tolist()) & set(direct.idx[qi].tolist()))
+        total += 10
+    if total:
+        assert hits / total >= 0.9
+    # the run actually reported its overload economics
+    assert 0.0 < shed_rate < 1.0
+
+
+# ------------------------------------------------ the port's own additions
+
+def test_http_front_answers_equal_direct_query(server, corpus):
+    """The HTTP front's ids and distances are the server's direct answer
+    for the same row (one ServedResult path).  The requests go one at a
+    time, so each is a batch of one, compared with a direct batch of one:
+    the f32 cross term of a batch rounds by the batch's shape."""
+    import urllib.request
+
+    run = ServingRuntime(server, OverloadPolicy(max_batch=4, flush_ms=1.0)).start()
+    httpd = start_http_front(run, port=0)
+    port = httpd.server_address[1]
+    got = []
+    try:
+        for i in range(6):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/search",
+                data=json.dumps({"q": corpus[i].tolist(), "k": 5}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                got.append(json.loads(resp.read()))
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        run.stop()
+    for i, out in enumerate(got):
+        direct = server.query(corpus[i:i + 1], k=5)
+        assert out["outcome"] == "ok" and not out["degraded"]
+        assert out["idx"] == direct.idx[0].tolist()
+        assert out["dist"] == direct.dist[0].tolist()
+        assert out["comparisons"] == int(direct.comparisons[0])
+    assert health["completed"] >= 6 and health["health"] == "SERVING"
+
+
+def test_runtime_over_a_degraded_sharded_server(corpus):
+    """A killed shard behind the runtime: every answer is the survivors'
+    merge, flagged degraded, as a direct query gives it."""
+    plan = chaos_lib.FaultPlan(seed=0)
+    srv = serve_lib.SearchServer(corpus, engine="brute", shards=2, cfg={},
+                                 chaos=plan, device=CPU)
+    plan.kill_shard(1)
+    run = ServingRuntime(srv, OverloadPolicy(max_batch=8, flush_ms=1.0)).start()
+    try:
+        res = [run.submit(corpus[i], k=5).result(timeout=30) for i in range(4)]
+    finally:
+        run.stop()
+    direct = srv.query(corpus[:4], k=5)
+    assert direct.degraded and direct.shards_answered == 1
+    for i, r in enumerate(res):
+        assert r.degraded and r.shards_answered == 1 and r.shards_total == 2
+        np.testing.assert_array_equal(r.idx[0], direct.idx[i])
+    assert srv.health == "DEGRADED"

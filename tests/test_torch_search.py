@@ -228,7 +228,7 @@ def test_registry_build_defaults_and_reserved_keys(data):
                           device=CPU)
     assert idx.search_defaults == {"rerank": 8, "budget": 50}
     assert index_lib.available() == ("brute", "infinity", "ivf_flat", "ivf_pq", "live",
-                                     "nsw")
+                                     "nsw", "sharded")
     with pytest.raises(TypeError, match="chaos cfg must be"):
         index_lib.build("infinity", X[:120], small | {"chaos": True}, device=CPU)
     tagged = index_lib.build("infinity", X[:120], small | {"attrs": {"tag": np.arange(120)}},

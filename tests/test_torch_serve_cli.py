@@ -47,10 +47,10 @@ def _jax_main(args):
 
 
 def test_list_engines_matches_jax(capsys):
-    """Every registry key JAX lists but ``sharded`` (not ported)."""
+    """Every registry key JAX lists, ``sharded`` included."""
     tserve.main(["--list-engines"])
     mine = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
     _jax_main(["--list-engines"])
     theirs = [line.split()[0] for line in capsys.readouterr().out.splitlines()]
-    assert mine == [name for name in theirs if name != "sharded"]
+    assert mine == theirs
     assert "live" in mine

@@ -49,6 +49,7 @@ import ctypes
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 
@@ -119,17 +120,22 @@ def entry(lib, name: str):
     return fn
 
 
-def host_times(table, ids, calls: int = 2000) -> dict:
+def host_times(table, ids, calls: int = 2000, rounds: int = 7) -> dict:
     """Host microseconds a call of a one-id bag, back to back, the card
-    synchronised once at the end (its kernel takes ~2 us, so the host is
-    the bound): ``embedding_bag_cuda`` (checks, the output's allocation,
-    the plan, the stream, the C entry), ``bag_f32`` called directly through
-    ctypes, and ``torch.cuda.current_stream`` alone."""
+    synchronised once at the end of each pass (its kernel takes ~2 us, so
+    the host is the bound); ``rounds`` passes of every variant, the order
+    rotated each round, the median per variant (each pass in
+    ``us_rounds``): the public entry ``kernels/bag/ops.embedding_bag`` (the
+    wrapper behind the ``dist/roofline`` hook, with no capture open),
+    ``embedding_bag_cuda`` (checks, the output's allocation, the plan, the
+    stream, the C entry), ``bag_f32`` called directly through ctypes, and
+    ``torch.cuda.current_stream`` alone."""
     import time
 
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bag import ops as bag_ops
     from repro_torch.kernels.bag.bag import _ARGTYPES, embedding_bag_cuda, launch_plan
 
     out = torch.empty((1, 1), dtype=torch.float32, device=table.device)
@@ -139,20 +145,26 @@ def host_times(table, ids, calls: int = 2000) -> dict:
     args = (table.data_ptr(), 0, ids.data_ptr(), None, out.data_ptr(), 1, 1, 1, 0,
             plan.threads, plan.bags, plan.chunk, plan.window, int(plan.warp), stream)
     runs = {
+        "entry": lambda: bag_ops.embedding_bag(table, ids),
         "wrapper": lambda: embedding_bag_cuda(table, ids),
         "c_entry": lambda: fn(*args),
         "current_stream": lambda: _build.stream_handle(table.device),
     }
-    row = {"case": "host time a call, one-id bag", "us": {}}
-    for name, run in runs.items():
-        run()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
+    names = list(runs)
+    passes = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            run = runs[name]
             run()
-        torch.cuda.synchronize()
-        row["us"][name] = (time.perf_counter() - t0) / calls * 1e6
-    return row
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+            passes[name].append((time.perf_counter() - t0) / calls * 1e6)
+    return {"case": "host time a call, one-id bag",
+            "us": {name: statistics.median(v) for name, v in passes.items()},
+            "us_rounds": passes}
 
 
 def main(argv=None) -> int:
