@@ -25,8 +25,14 @@ Phases, in order; any failure exits non-zero:
    serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
    retrieval_cand and the infinity retrieval, the launch floor (one id),
    D = 1 / 10 sum / mean rows with padding ids and weights at the
-   serve_bulk batch, and the D = 10 table as bf16 and f16 there), each
-   bit-identical to its plain version, with its launch plan and instance.
+   serve_bulk batch, and the D = 10 table as bf16 and f16 there, and the
+   (V, 1) table at the train batch), each bit-identical to its plain
+   version, with its launch plan and instance; the bag's backward
+   (``bag_backward``, no TPU counterpart) at DeepFM's train batch and one
+   xDeepFM microbatch over the 30226432-row (V, 1) table and a D = 10 mean
+   case with padding and weights, each bit-identical to its plain version
+   on integer-valued weights and gradients (f32 atomics sum in any order;
+   exact integer sums round in none).
    Each prints its error, id agreement, the kernel's time (CUDA events
    after warm-up; the bag also in a CUDA graph, without the host's calls
    between launches), the plain version's time, the time of one PyTorch
@@ -64,7 +70,8 @@ Phases, in order; any failure exits non-zero:
 7. Recsys serving at full width (``configs.get(arch)``, 39 Criteo-shaped
    fields, a 30226432-row table, random weights from ``--seed``): DeepFM
    at serve_p99 (512), serve_bulk (262144) and retrieval_cand (1 query x
-   1000000 candidates, k=100), FM, xDeepFM and AutoInt at serve_p99, one
+   1000000 candidates, k=100), FM, xDeepFM and AutoInt at serve_p99 and
+   serve_bulk (xDeepFM's CIN in chunks of ``models.recsys.CIN_CHUNK`` rows), one
    model on the card at a time.  Each window is counted and must launch
    the embedding bag once per call and nothing else; each prints p50 ms,
    examples/s, peak memory and the kernel path's logits (or retrieval ids)
@@ -158,10 +165,37 @@ Phases, in order; any failure exits non-zero:
    and int8 topk on one shard's rows at S = 2 and 4, pdist at the IVF
    probes' shape, and the f32 topk of one live shard's frozen scan at k'.
 
+11. Recsys training and the projection search at full width
+   (``phase_training``).  DeepFM at published widths through
+   ``launch.train.build("deepfm", reduced=False, batch=65536)``: one
+   gradient by the bag and its backward kernel held against the same
+   gradient by their plain versions (loss rtol 1e-5, the ``linear``
+   gradient rtol 1e-5 / atol 1e-7, TF32 off); 2 warm-up and 10 timed AdamW
+   steps, one counted window (``bag`` and ``bag_backward`` once a step):
+   p50 step, examples/s, peak memory, the losses (finite); one step with
+   ``microbatches=2, grad_compression="int8"``; the checkpoint round trip
+   of (params, AdamW state), written by ``AsyncCheckpointer`` under
+   ``build/phase11-*`` while the next step runs, restored and held equal
+   bit for bit, then removed (host copy, write and restore seconds).
+   xDeepFM (CIN 200-200-200) at the train batch in 8 microbatches, two
+   steps.  Then ``benchmarks/bench_projection_search.py``'s config
+   (fashion_like, n = 1000, 100 queries, euclidean, q in 1, 2, 4, 8, 16,
+   32, inf): per q a counted window of ``project_with_queries`` (its
+   projection's 10 sweeps and one product on the qpath kernel), E_q
+   against the plain qpath's (minmax bit-identical, logminplus rtol 1e-4),
+   and the exact best-first search over the VP tree of D_q: up to q = 8
+   each first answer's E_q must be the nearest neighbour's distance
+   (Prop. 1; at q = 16 and 32 the pruning of 16th and 32nd powers in f32
+   can drop the neighbour, so those are read, not held); recall@1,
+   recall@10 and RankOrder@10 are printed (recall@10 falls below 1 at
+   q = 16 and 32: the projection keeps the nearest neighbour, not the
+   order of the next nine).
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
-minmax, the bench-config q=2 build and the infinity retrieval in
-logminplus), each held against its plain version and timed, one row per
+minmax, the bench-config q=2 build, the infinity retrieval and the
+projection search at q=2 in logminplus, the projection search at q=inf in
+minmax), each held against its plain version and timed, one row per
 window.
 
 The line before the last is a JSON object listing every kernel row, each
@@ -220,11 +254,13 @@ NUM_HOPS = 6  # IndexConfig().num_hops: qpath sweeps per build
 K = 10  # every serving phase answers top-10
 SEARCH_KW = dict(budget=1024, rerank=256, mode="auto")
 BENCH_N, BENCH_Q = 2048, 512  # benchmarks/bench_infinity.py defaults
-# the windows whose recorded sweep operands the qpath path rows replay:
-# q=inf builds sweep in minmax, finite-q builds in logminplus, no build
-# sweeps in minplus
-QPATH_WINDOWS = ("full-width build", "bench-config build q=inf",
-                 "bench-config build q=2", "infinity retrieval")
+# the windows whose recorded sweep operands the qpath path rows replay, and
+# the products each runs: q=inf builds sweep in minmax, finite-q builds in
+# logminplus, no build sweeps in minplus; the projection search projects
+# D (10 sweeps at n = 1000) and multiplies the query rows by D_q once
+QPATH_WINDOWS = {"full-width build": NUM_HOPS, "bench-config build q=inf": NUM_HOPS,
+                 "bench-config build q=2": NUM_HOPS, "infinity retrieval": NUM_HOPS,
+                 "projection search q=2": 11, "projection search q=inf": 11}
 NO_QPATH_WINDOW = ("none: a fixed 2048^3 operand; the sweeps the windows ran are "
                    "the rows named by their window")
 NO_CHEBYSHEV = "none: no chebyshev window on the main path"
@@ -244,6 +280,9 @@ NO_BAG_FLOOR = "none: the launch floor, a 1x1 bag; no window runs it"
 RECSYS_RTOL = RECSYS_ATOL = 1e-5
 RECSYS_ARCHS = ("deepfm", "fm", "xdeepfm", "autoint")
 SERVE_REPS = {"serve_p99": 30, "serve_bulk": 10}  # timed, after 2 warm-ups
+# serve_bulk of the heavier interactions: xDeepFM's chunked CIN is ~1e13
+# flops a call
+BULK_REPS = {"xdeepfm": 3, "autoint": 5}
 RETRIEVAL_REPS = 20
 RETRIEVAL_K = 100  # train_step.make_retrieval_step's default
 # examples/recsys_retrieval.py: candidates, users, the index and the search
@@ -279,7 +318,7 @@ FILTERED_SLACK = 0.05
 INF_FILTERED_JAX = {0.9: 0.4219, 0.5: 0.4078, 0.1: 0.3031, 0.01: 0.2125}
 #: every launch counter, zero unless a window requires otherwise
 COUNTERS = ("topk/f32", "topk/cube", "topk/int8", "pdist/matmul", "pdist/cube",
-            "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag")
+            "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag", "bag_backward")
 
 
 def log(msg: str) -> None:
@@ -435,7 +474,8 @@ def _ptxas_summary(report: str) -> dict:
             name = m.group(1)
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
                           "merge_kernel", "sqnorm_kernel", "qpath_kernel",
-                          "min_splits_kernel", "bag_warp_kernel", "bag_kernel"):
+                          "min_splits_kernel", "bag_warp_kernel", "bag_backward_kernel",
+                          "bag_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
                     args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
@@ -673,6 +713,7 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
             log("kernel " + json.dumps(rows[-1]))
         del first, last
     rows += _bag_rows(seed, ptxas)
+    rows += _bag_backward_rows(seed, ptxas)
     return rows
 
 
@@ -741,9 +782,9 @@ def phase_qpath_windows(sweeps: dict) -> list[dict]:
     for window in QPATH_WINDOWS:
         ops = sweeps[window]
         modes = {mode for mode, _, _ in ops}
-        if len(modes) != 1 or len(ops) != NUM_HOPS:
-            fail(f"{window}: recorded {len(ops)} sweeps in modes {sorted(modes)}, "
-                 f"want {NUM_HOPS} in one mode")
+        if len(modes) != 1 or len(ops) != QPATH_WINDOWS[window]:
+            fail(f"{window}: recorded {len(ops)} products in modes {sorted(modes)}, "
+                 f"want {QPATH_WINDOWS[window]} in one mode")
         mode = modes.pop()
         got = [_qpath_sweep(mode, A, A if B is None else B, f"{window}, sweep {t}")
                for t, (mode, A, B) in enumerate(ops)]
@@ -753,7 +794,7 @@ def phase_qpath_windows(sweeps: dict) -> list[dict]:
         bounds = [g["bound"] for g in got]
         m, kd, n = got[0]["shape"]
         rows.append({
-            "name": "qpath", "case": f"{mode} {m}x{kd}x{n} {window}, {len(got)} sweeps",
+            "name": "qpath", "case": f"{mode} {m}x{kd}x{n} {window}, {len(got)} products",
             "path": window, "idle": None, "counter": f"qpath/{mode}",
             "source": "src/repro_torch/csrc/qpath.cu",
             "replaces": "src/repro/kernels/qpath/qpath.py:45",
@@ -912,6 +953,8 @@ def bag_inputs(seed: int):
                         device=dev)
     B_bulk, E = bulk.shape[0], cfg.embed_dim
     return tables, [
+        ("first-order term, DeepFM train_batch", 1, flat(0, sizes["train_batch"]), None,
+         "sum", "deepfm train_batch"),
         ("first-order term, DeepFM serve_bulk", 1, bulk, None, "sum", "deepfm serve_bulk"),
         ("first-order term, DeepFM serve_p99", 1, flat(0, sizes["serve_p99"]), None,
          "sum", "deepfm serve_p99"),
@@ -1007,6 +1050,102 @@ def _bag_rows(seed: int, ptxas: dict) -> list[dict]:
         })
         log("kernel " + json.dumps(rows[-1]))
     del tables, cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _bag_backward_rows(seed: int, ptxas: dict) -> list[dict]:
+    """The bag's backward (``bag_backward``, no TPU kernel: JAX's gradient
+    is XLA's scatter-add) at the training path's shapes — DeepFM's
+    first-order term at the train batch and at one xDeepFM microbatch, the
+    (V, 1) table's 30 226 432 rows — and a D = 10 mean case with padding
+    and weights (no window), each equal bit for bit to its plain version.
+    The atomics sum a row in any order, so the rows take small integer
+    weights and gradients (under ``mean`` an integer times the bag's weight
+    sum): every contribution and partial sum is then an exact f32 integer
+    and no order rounds.  ``ms`` times the wrapper:
+    the zeroed (V, D) gradient and the kernel; ``library_ms`` the same
+    zeroing and one ``index_add_`` of the precomputed w * g rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.dist import roofline
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+    from repro_torch.kernels.bag.ref import bag_scale, embedding_bag_backward_ref
+    from repro_torch.models import recsys as recsys_lib
+
+    dev = torch.device(DEVICE)
+    cfg = configs.get("deepfm")
+    V = recsys_lib._padded_vocab(cfg)
+    offsets = recsys_lib.field_offsets(cfg, dev)
+    rng = np.random.default_rng(seed)
+
+    def flat(step: int, batch: int):
+        ids = recsys_batch(step, batch, cfg.vocabs, seed=seed)["ids"]
+        return torch.as_tensor(ids, device=dev) + offsets[None, :]
+
+    train = flat(0, TRAIN_BATCH)
+    micro = flat(0, TRAIN_BATCH // XDEEPFM_MICROBATCHES)
+    padded = torch.where(torch.as_tensor(rng.random(train.shape) < 0.1, device=dev), -1,
+                         train)
+    w = torch.as_tensor(rng.integers(1, 4, size=train.shape).astype(np.float32), device=dev)
+    cases = [
+        ("first-order gradient, DeepFM train_batch", train, None, 1, "sum",
+         "deepfm train_batch"),
+        ("first-order gradient, one xDeepFM microbatch", micro, None, 1, "sum",
+         f"xdeepfm train_batch mb={XDEEPFM_MICROBATCHES}"),
+        ("10 % padding ids, weights, mean", padded, w, 10, "mean", None),
+    ]
+    rows = []
+    for case, ids, wts, D, combine, path in cases:
+        B, S = ids.shape
+        k = torch.as_tensor(rng.integers(-4, 5, size=(B, D)).astype(np.float32), device=dev)
+        ew, div = bag_scale(ids, wts, combine)
+        g = k * div
+        # the most a row's partial sums reach: exact in f32 below 2^24
+        reach = float(embedding_bag_backward_ref(k.abs(), ids, wts, V).max())
+        if reach >= 2 ** 24:
+            fail(f"bag_backward {case}: integer sums reach {reach}, not exact in f32")
+        out = embedding_bag_backward_cuda(g, ids, wts, V, combine=combine)
+        ref = embedding_bag_backward_ref(g, ids, wts, V, combine=combine)
+        err = float((out - ref).abs().max())
+        if not torch.equal(out, ref):
+            fail(f"bag_backward {case} disagrees with its plain version (max err {err})")
+        # the library's one call: index_add_ of the w * g rows (made beforehand)
+        valid = (ids >= 0).reshape(-1)
+        src = (ew[:, :, None] * (g / div)[:, None, :]).reshape(B * S, D)[valid].contiguous()
+        rows_ids = ids.reshape(-1)[valid].long().contiguous()
+        lib = torch.zeros((V, D), device=dev).index_add_(0, rows_ids, src)
+        if not torch.equal(lib, ref):
+            fail(f"index_add_ disagrees with the plain backward on {case}")
+        del lib
+        bound = _bound(*roofline.bag_backward_work(ids, D, V, weighted=wts is not None))
+        # the bytes the scatter alone moves (ids, g, and a read and a write
+        # of each of the B * S * D contributions' values), beside the bound
+        bound["scatter_bytes"] = 4 * B * S * (2 if wts is not None else 1) + 4 * B * D \
+            + 8 * int(valid.sum()) * D
+        rows.append({
+            "name": "bag_backward", "case": f"{case} {B}x{S} D={D} V={V} {combine}",
+            "path": path, "idle": None if path else NO_BAG_BACKWARD_EXTRAS,
+            "counter": "bag_backward", "source": "src/repro_torch/csrc/bag.cu",
+            "replaces": "no TPU kernel: XLA's scatter-add, the VJP of jnp.take at "
+                        "src/repro/dist/embedlookup.py:23",
+            "max_abs_err": err, "bit_equal": True, "max_row_reach": reach,
+            "ms": cuda_ms(lambda: embedding_bag_backward_cuda(g, ids, wts, V, combine=combine),
+                          10),
+            "plain_ms": cuda_ms(lambda: embedding_bag_backward_ref(g, ids, wts, V,
+                                                                   combine=combine), 5),
+            "library_ms": cuda_ms(lambda: torch.zeros((V, D), device=dev).index_add_(
+                0, rows_ids, src), 10),
+            "zero_fill_ms": cuda_ms(lambda: torch.zeros((V, D), device=dev), 10),
+            "bound": bound, "threads_per_block": 256, "blocks": -(-B * D // 256),
+            "instance": "bag_backward_kernel", **ptxas["bag_backward_kernel"],
+        })
+        log("kernel " + json.dumps(rows[-1]))
+        del out, ref, src
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -1397,7 +1536,8 @@ def _recsys_serve(arch: str, cfg, model, shape, seed: int) -> dict:
     B = shape.batch
     ids = torch.as_tensor(recsys_batch(0, B, cfg.vocabs, seed=seed)["ids"], device=DEVICE)
     serve = make_serve_step(cfg, "recsys")
-    reps = SERVE_REPS[shape.name]
+    reps = BULK_REPS.get(arch, SERVE_REPS[shape.name]) if shape.name == "serve_bulk" \
+        else SERVE_REPS[shape.name]
     torch.cuda.reset_peak_memory_stats()
     (probs, times), counts = counted(
         lambda: _timed_calls(lambda: serve(model, {"ids": ids}), reps))
@@ -1548,7 +1688,7 @@ def phase_recsys(seed: int, sweeps: dict) -> list[dict]:
         init_s = time.perf_counter() - t0
         table = (_padded_vocab(cfg), cfg.embed_dim)
         served = ("serve_p99", "serve_bulk", "retrieval_cand") if arch == "deepfm" \
-            else ("serve_p99",)
+            else ("serve_p99", "serve_bulk")
         for name in served:
             if shapes[name].kind == "retrieval":
                 row = _recsys_retrieval(cfg, model, shapes[name], seed)
@@ -1560,14 +1700,6 @@ def phase_recsys(seed: int, sweeps: dict) -> list[dict]:
         if arch == "deepfm":
             sweeps["infinity retrieval"] = []
             rows.append(_infinity_retrieval(cfg, model, seed, sweeps["infinity retrieval"]))
-            log("recsys " + json.dumps(rows[-1]))
-        if arch == "xdeepfm":
-            B = shapes["serve_bulk"].batch
-            cin = 4 * B * max(cfg.cin_layers) * cfg.n_sparse * cfg.embed_dim
-            rows.append({"arch": arch, "shape": "serve_bulk", "served": False,
-                         "why": f"the CIN's ({B}, {max(cfg.cin_layers)}, {cfg.n_sparse}, "
-                                f"{cfg.embed_dim}) f32 outer product is {cin} bytes, "
-                                "more than one 80 GB card holds"})
             log("recsys " + json.dumps(rows[-1]))
         del model
         gc.collect()
@@ -3285,6 +3417,427 @@ def phase_sharded(corpus, Qt, main_state: dict,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: recsys training and the projection search at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 65536  # configs.base.RECSYS_SHAPES train_batch
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+TRAIN_LR = 1e-3  # launch/train.py's AdamW
+XDEEPFM_MICROBATCHES = 8  # 8 192 rows a microbatch: ~3 x 2.6 GB of CIN outer products
+# the kernel step against the plain step: the same products, the loss's
+# sums and the backward's atomics in another order
+TRAIN_LOSS_RTOL = 1e-5
+BAG_GRAD_RTOL, BAG_GRAD_ATOL = 1e-5, 1e-7
+# benchmarks/bench_projection_search.py: fashion_like, euclidean, n = 1000,
+# 100 queries, the q sweep
+PROJ_N, PROJ_Q = 1000, 100
+PROJ_QS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, math.inf)
+# E_q from the qpath kernel against the plain qpath: minmax bit-identical;
+# logminplus within 1e-5 a product in the log domain (LOGMINPLUS_ATOL),
+# over 11 products and back through exp(L / q): rtol 1e-4
+PROJ_RTOL = 1e-4
+# Prop. 1 on E_q (the nearest neighbour keeps its distance, nothing
+# projects below it) is held at every q; the search's first answer is held
+# to the neighbour where f32 keeps it: up to q = 8.  At q = 16 the search's pruning compares
+# 16th powers that the projection makes equal up to rounding, and the
+# neighbour is pruned for 1 of 100 queries on the CPU as on the card (2e-7
+# of noise on E_q and D_q prunes it for 2-6; q = 8 stays at 1.0), so
+# q = 16 and 32 are read, not held (PERF.md section 6)
+PROJ_EXACT_Q_MAX = 8.0
+NO_BAG_BACKWARD_EXTRAS = "none: the training ids carry no padding and no weights"
+
+
+def _plain_bag_grad():
+    """The bag under autograd by its plain versions (forward and backward)
+    on the card, launching no kernel: what the training step's kernel path
+    is held against."""
+    import torch
+
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref, embedding_bag_ref
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, table, ids, weights, combine):
+            ctx.save_for_backward(ids, weights)
+            ctx.combine, ctx.rows = combine, table.shape[0]
+            return embedding_bag_ref(table, ids, weights, combine=combine)
+
+        @staticmethod
+        def backward(ctx, g):
+            ids, weights = ctx.saved_tensors
+            return (embedding_bag_backward_ref(g.contiguous(), ids, weights, ctx.rows,
+                                               combine=ctx.combine), None, None, None)
+
+    def bag(table, ids, weights=None, *, combine="sum"):
+        return Fn.apply(table, ids, weights, combine)
+
+    return bag
+
+
+@contextlib.contextmanager
+def plain_bag_grad():
+    """Within: the recsys model's bags run their plain forward and backward
+    (``_plain_bag_grad``) on the card."""
+    from repro_torch.models import recsys as recsys_lib
+
+    saved = recsys_lib.embedding_bag
+    recsys_lib.embedding_bag = _plain_bag_grad()
+    try:
+        yield
+    finally:
+        recsys_lib.embedding_bag = saved
+
+
+def _peak_reset():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train import tree as tree_lib
+
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree)
+               if hasattr(t, "numel"))
+
+
+def _train_deepfm(tmp: str) -> tuple[list[dict], dict]:
+    """DeepFM at published widths and the train batch: the timed steps (a
+    counted window), the kernel step against the plain step, one step with
+    microbatches and int8 compression, and the checkpoint round trip
+    written while the next step runs.  Weights and batches as
+    ``launch.train.build`` makes them (seed 0, as JAX's launcher)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.recsys import recsys_loss
+    from repro_torch.train import checkpoint as ckpt_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch import configs
+
+    dev = torch.device(DEVICE)
+    cfg = configs.get("deepfm")
+    t0 = time.perf_counter()
+    params, state, step, batches = train_launch.build("deepfm", reduced=False,
+                                                      batch=TRAIN_BATCH, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    data = [batches(t) for t in range(n + 2)]
+    rows, windows = [], {}
+
+    # the kernel step against the plain step: one gradient from the same
+    # weights and batch, the bag and its backward by their kernels, then by
+    # their plain versions
+    (g_k, m_k), counts_k = counted(lambda: value_and_grad(recsys_loss, params, data[0], cfg))
+    require(counts_k, {"bag": 1, "bag_backward": 1}, "deepfm gradient, kernels")
+    with plain_bag_grad():
+        (g_p, m_p), counts_p = counted(
+            lambda: value_and_grad(recsys_loss, params, data[0], cfg))
+    require(counts_p, {}, "deepfm gradient, plain bag")
+    loss_k, loss_p = float(m_k["loss"]), float(m_p["loss"])
+    if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)):
+        fail(f"deepfm train step: loss {loss_k} against the plain bag's {loss_p}")
+    lin_k, lin_p = g_k["linear"], g_p["linear"]
+    lin_err = float((lin_k - lin_p).abs().max())
+    if not torch.allclose(lin_k, lin_p, rtol=BAG_GRAD_RTOL, atol=BAG_GRAD_ATOL):
+        fail(f"deepfm train step: linear gradient off the plain backward's by {lin_err}")
+    table_err = float((g_k["table"] - g_p["table"]).abs().max())
+    parity = {"loss_kernel": loss_k, "loss_plain": loss_p,
+              "linear_grad_max_abs_err": lin_err, "table_grad_max_abs_err": table_err,
+              "linear_grad_rows_touched": int((lin_p != 0).sum()),
+              "launches": counts_k, "plain_launches": counts_p}
+    del g_k, g_p, lin_k, lin_p
+    gc.collect()
+
+    # the timed steps: TRAIN_WARMUP then TRAIN_TIMED, one counted window
+    def run():
+        p, s = params, state
+        times, losses = [], []
+        for t in range(n):
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, data[t])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return p, s, times, losses
+
+    _peak_reset()
+    (params2, state2, times, losses), counts = counted(run)
+    peak = torch.cuda.max_memory_allocated()
+    require(counts, {"bag": n, "bag_backward": n}, "deepfm train_batch")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"deepfm train_batch: non-finite losses {losses}")
+    timed = times[TRAIN_WARMUP:]
+    p50 = float(np.median(timed))
+    windows["deepfm train_batch"] = counts
+    rows.append({"arch": "deepfm", "shape": "train_batch", "batch": TRAIN_BATCH,
+                 "optimizer": f"adamw {TRAIN_LR}", "init_seconds": init_s,
+                 "steps_timed": TRAIN_TIMED, "p50_step_ms": p50 * 1e3,
+                 "mean_step_ms": float(np.mean(timed)) * 1e3,
+                 "step_ms": [x * 1e3 for x in times],
+                 "examples_per_s": TRAIN_BATCH / p50, "peak_memory_bytes": int(peak),
+                 "param_bytes": _tree_bytes(params), "opt_state_bytes": _tree_bytes(state),
+                 "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+                 "launches": counts,
+                 "launches_per_step": {k: v / n for k, v in counts.items() if v},
+                 "kernel_vs_plain": parity, "mlp_gflop_per_step": 3 * _mlp_gflop(cfg, TRAIN_BATCH)})
+    log("training " + json.dumps(rows[-1]))
+    del params, state
+    params, state = params2, state2
+    del params2, state2
+    gc.collect()
+
+    # microbatches and int8 compression, one step
+    opt = opt_lib.adamw(TRAIN_LR)
+    mstep = make_train_step(cfg, "recsys", opt, microbatches=2, grad_compression="int8")
+    _peak_reset()
+
+    def one():
+        t0 = time.perf_counter()
+        out = mstep(params, state, data[n])
+        loss = float(out[2]["loss"])
+        torch.cuda.synchronize()
+        return out, loss, time.perf_counter() - t0
+
+    ((p3, s3, _), loss, dt), counts = counted(one)
+    require(counts, {"bag": 2, "bag_backward": 2}, "deepfm train_batch mb=2 int8")
+    if not math.isfinite(loss):
+        fail(f"deepfm mb=2 int8 step: loss {loss}")
+    windows["deepfm train_batch mb=2 int8"] = counts
+    rows.append({"arch": "deepfm", "shape": "train_batch", "batch": TRAIN_BATCH,
+                 "microbatches": 2, "grad_compression": "int8", "step_ms": dt * 1e3,
+                 "loss": loss, "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+                 "launches": counts})
+    log("training " + json.dumps(rows[-1]))
+    del p3, s3
+    gc.collect()
+
+    # the checkpoint round trip: the host copy on this thread, the write on
+    # the saver's thread while the next step runs, then the restore
+    saver = ckpt_lib.AsyncCheckpointer(tmp, keep=1)
+    tree = (params, state)
+    t0 = time.perf_counter()
+    saver.save(state.step, tree)
+    t1 = time.perf_counter()
+    nxt, nxt_state, m = step(params, state, data[n + 1])
+    float(m["loss"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    saver.wait()
+    t3 = time.perf_counter()
+    del nxt, nxt_state
+    gc.collect()
+    disk = sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(tmp)
+               for f in files)
+    t4 = time.perf_counter()
+    (rp, rs), rstep = ckpt_lib.restore(tmp, tree, device=dev)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    if rstep != state.step:
+        fail(f"checkpoint: restored step {rstep}, saved {state.step}")
+    for (key, a), (_, b) in zip(tree_lib.paths(tree), tree_lib.paths((rp, rs))):
+        same = a == b if isinstance(a, int) else (a.dtype == b.dtype and torch.equal(a, b))
+        if not same:
+            fail(f"checkpoint: leaf {key} differs after the round trip")
+    ck = {"arch": "deepfm", "what": "checkpoint round trip", "step": rstep,
+          "leaves": len(tree_lib.leaves(tree)), "tree_bytes": _tree_bytes(tree),
+          "disk_bytes": disk, "host_copy_seconds": t1 - t0,
+          "step_during_write_ms": (t2 - t1) * 1e3, "write_seconds": t3 - t1,
+          "restore_seconds": t5 - t4, "bit_equal": True}
+    log("checkpoint " + json.dumps(ck))
+    del rp, rs, tree, params, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows + [ck], windows
+
+
+def _train_xdeepfm() -> tuple[dict, dict]:
+    """xDeepFM at published widths (CIN 200-200-200), one train batch in
+    XDEEPFM_MICROBATCHES microbatches, two steps (the first builds cuBLAS's
+    plans), the second timed."""
+    import torch
+
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch import configs
+
+    dev = torch.device(DEVICE)
+    cfg = configs.get("xdeepfm")
+    params, state, _, batches = train_launch.build("xdeepfm", reduced=False,
+                                                   batch=TRAIN_BATCH, device=dev)
+    step = make_train_step(cfg, "recsys", opt_lib.adamw(TRAIN_LR),
+                           microbatches=XDEEPFM_MICROBATCHES)
+    data = [batches(t) for t in range(2)]
+    _peak_reset()
+
+    def run():
+        p, s, out = params, state, []
+        for t in range(2):
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, data[t])
+            out.append((float(m["loss"]), time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return out
+
+    got, counts = counted(run)
+    what = f"xdeepfm train_batch mb={XDEEPFM_MICROBATCHES}"
+    require(counts, {"bag": 2 * XDEEPFM_MICROBATCHES, "bag_backward": 2 * XDEEPFM_MICROBATCHES},
+            what)
+    if not all(math.isfinite(loss) for loss, _ in got):
+        fail(f"{what}: losses {got}")
+    B = TRAIN_BATCH // XDEEPFM_MICROBATCHES
+    row = {"arch": "xdeepfm", "shape": "train_batch", "batch": TRAIN_BATCH,
+           "microbatches": XDEEPFM_MICROBATCHES, "cin_layers": list(cfg.cin_layers),
+           "step_ms": [dt * 1e3 for _, dt in got], "losses": [loss for loss, _ in got],
+           "peak_memory_bytes": int(torch.cuda.max_memory_allocated()),
+           "cin_outer_product_bytes_per_layer": 4 * B * max(cfg.cin_layers) * cfg.n_sparse
+           * cfg.embed_dim,
+           "launches": counts}
+    log("training " + json.dumps(row))
+    del params, state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, {what: counts}
+
+
+def _projection_search(sweeps: dict) -> tuple[list[dict], dict]:
+    """``benchmarks/bench_projection_search.py``'s flow on the card: D and
+    the query rows by the pdist kernel, then per q the projection of the
+    query rows (``project_with_queries``, a counted window: the
+    projection's sweeps and one product of the rows by D_q on the qpath
+    kernel), E_q against the same computed with the plain qpath, and the
+    exact best-first search over the VP tree of D_q.  Prop. 1: the nearest
+    neighbour survives the projection — E_q at it and E_q's least value
+    are its distance (rtol ``PROJ_RTOL``), held at every q — so up to q =
+    ``PROJ_EXACT_Q_MAX`` the search's first answer must be it (recall@1 =
+    1.0) and have that E_q; recall@1 above that q, recall@10 and
+    RankOrder@10 are read, not held."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import metrics, qmetric, vptree
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.qpath.ref import qpath_matmul_ref
+
+    dev = torch.device(DEVICE)
+    X = torch.as_tensor(synthetic.make("fashion_like", PROJ_N + PROJ_Q, seed=0), device=dev)
+    Xtr, Q = X[:PROJ_N], X[PROJ_N:]
+    D = metrics.pairwise(Xtr, Xtr, metric="euclidean").clone()
+    D.fill_diagonal_(0.0)
+    D = (D + D.T) / 2
+    rows_q = metrics.pairwise(Q, Xtr, metric="euclidean")
+    gt = torch.sort(rows_q, dim=1, stable=True).indices[:, :K].cpu().numpy()
+    sweeps_n = qmetric._num_sweeps(PROJ_N)
+    out, windows = [], {}
+    for q in PROJ_QS:
+        mode = "minmax" if math.isinf(q) else "logminplus"
+        label = f"projection search q={'inf' if math.isinf(q) else int(q)}"
+        rec = sweeps.setdefault(label, []) if label in QPATH_WINDOWS else None
+
+        def window():
+            t0 = time.perf_counter()
+            with recorded_sweeps(rec):
+                Eq = qmetric.project_with_queries(D, rows_q, q, row_block=16)
+            torch.cuda.synchronize()
+            return Eq, time.perf_counter() - t0
+
+        (Eq, proj_s), counts = counted(window)
+        require(counts, {f"qpath/{mode}": sweeps_n + 1}, label)
+        windows[label] = counts
+        inner = qmetric.qpath_ops.qpath_matmul
+        qmetric.qpath_ops.qpath_matmul = (
+            lambda A, B, *, mode="minmax", row_block=32: qpath_matmul_ref(
+                A, B, mode=mode, row_block=row_block))
+        try:
+            (Eq_plain, Dq), plain_counts = counted(lambda: (
+                qmetric.project_with_queries(D, rows_q, q, row_block=16),
+                qmetric.canonical_projection(D, q, row_block=16)))
+        finally:
+            qmetric.qpath_ops.qpath_matmul = inner
+        require(plain_counts, {}, f"{label}, plain qpath")
+        err = float((Eq - Eq_plain).abs().max())
+        ok = (torch.equal(Eq, Eq_plain) if math.isinf(q)
+              else bool(((Eq - Eq_plain).abs() <= PROJ_RTOL * Eq_plain.abs()).all()))
+        if not ok or not bool(torch.isfinite(Eq).all()):
+            fail(f"{label}: E_q off the plain qpath's by {err}")
+        # exp(q log d / q) may round a last ulp above d
+        if not bool((Eq <= rows_q * (1 + 1e-6)).all()):
+            fail(f"{label}: a projected distance above the direct one")
+        t0 = time.perf_counter()
+        tree = vptree.build_vptree(D=Dq.cpu().numpy(), seed=0, device=dev)
+        ki, _, comps = vptree.search_best_first(tree, Eq, q=q, k=K)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        # Prop. 1 on E_q itself, at every q: the nearest neighbour keeps its
+        # distance and no point projects below it (any path to x starts
+        # with an edge at least that long)
+        nn = torch.as_tensor(gt[:, :1], device=dev)
+        nearest = rows_q.gather(1, nn)[:, 0]
+
+        def at_nearest(v):
+            return bool(((v - nearest).abs() <= PROJ_RTOL * nearest).all())
+
+        if not (at_nearest(Eq.gather(1, nn)[:, 0]) and at_nearest(Eq.min(1).values)):
+            fail(f"{label}: E_q's least value is not the nearest neighbour's distance "
+                 "(Prop. 1)")
+        # and the search's first answer is the neighbour, at its distance,
+        # where f32 keeps the VP tree's pruning exact: up to q =
+        # PROJ_EXACT_Q_MAX (above it, read only)
+        first = Eq.gather(1, ki[:, :1].long())[:, 0]
+        top1_ok = at_nearest(first)
+        ki = ki.cpu().numpy()
+        r1 = float(np.mean(ki[:, 0] == gt[:, 0]))
+        r10 = float(np.mean([len(set(a) & set(b)) / K for a, b in zip(ki, gt)]))
+        pos = [{int(x): i + 1 for i, x in enumerate(t)} for t in gt]
+        rank_order = float(np.mean([sum(abs((i + 1) - p.get(int(x), K + 1))
+                                        for i, x in enumerate(a)) / K
+                                    for a, p in zip(ki, pos)]))
+        if q <= PROJ_EXACT_Q_MAX and not (top1_ok and r1 == 1.0):
+            fail(f"{label}: the search's first answer is not the nearest neighbour "
+                 f"(recall@1 {r1}, first at its distance {top1_ok}; Prop. 1)")
+        out.append({"q": q if not math.isinf(q) else "inf", "n": PROJ_N, "queries": PROJ_Q,
+                    "project_seconds": proj_s, "search_and_tree_seconds": search_s,
+                    "E_q_max_abs_err_vs_plain": err, "recall@1": r1,
+                    "first_at_nearest_distance": top1_ok,
+                    "first_ids_off_nearest": int((ki[:, 0] != gt[:, 0]).sum()),
+                    "recall@10": r10,
+                    "rank_order@10": rank_order,
+                    "mean_comparisons": float(comps.float().mean()), "launches": counts})
+        log("projection " + json.dumps(out[-1]))
+    return out, windows
+
+
+def phase_training(sweeps: dict) -> tuple[list[dict], dict]:
+    """Phase 11: DeepFM training, its kernel step against the plain step,
+    microbatches + int8, the checkpoint round trip, xDeepFM training in
+    microbatches, and the projection search."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase11-", dir=os.path.join(HERE, "build"))
+    try:
+        rows, windows = _train_deepfm(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row, win = _train_xdeepfm()
+    rows.append(row)
+    windows.update(win)
+    proj, win = _projection_search(sweeps)
+    rows += proj
+    windows.update(win)
+    log(f"phase 11 seconds {time.perf_counter() - t0:.3f}")
+    return rows, windows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3327,6 +3880,7 @@ def main(argv=None) -> int:
     manhattan = phase_manhattan(corpus, Qt)
     del corpus, Qt
     recsys = phase_recsys(args.seed, sweeps)
+    _, training_windows = phase_training(sweeps)
     rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],
@@ -3344,6 +3898,7 @@ def main(argv=None) -> int:
     windows.update({f"{r['arch']} {r['shape']}" if r["shape"] != "infinity retrieval"
                     else "infinity retrieval": r["launches"]
                     for r in recsys if "launches" in r})
+    windows.update(training_windows)
     kernels = []
     for row in rows:
         path = row["path"]

@@ -17,7 +17,10 @@ both packages can be held to one index:
 * ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
   the squared norms are recomputed, as every store derives them);
 * ``recsys_params_from_jax`` — ``RecsysModel`` from a JAX recsys params
-  tree.
+  tree (``.tree()`` gives the plain tree the train step takes);
+* ``opt_state_from_jax`` / ``opt_state_to_jax`` — optimizer state both
+  ways (``AdamWState``, ``AdafactorState``, the sgd tuple): JAX's ``step``
+  is an int32 scalar array, the port's a host int.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import params as params_lib
 from repro_torch.models import recsys as recsys_lib
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import tree as tree_lib
 
 
 def phi_from_params(params: Mapping[str, Any], device: torch.device) -> embed_lib.Phi:
@@ -165,3 +170,42 @@ def recsys_params_from_jax(params_np: Mapping[str, Any], cfg, *,
 
     tree = params_lib.map_decls(take, recsys_lib.recsys_decls(cfg))
     return recsys_lib.RecsysModel(cfg, tree)
+
+
+def _tensors(tree_np, dev: torch.device):
+    return tree_lib.tree_map(
+        lambda a: torch.tensor(np.asarray(a), device=dev), tree_np)
+
+
+def opt_state_from_jax(state_np, *, device: DeviceLike = None):
+    """The port's optimizer state from a JAX one whose arrays the caller
+    turned into numpy (``jax.tree_util.tree_map(np.asarray, state)``):
+    ``AdamWState(step, mu, nu)`` and ``AdafactorState(step, stats)`` are
+    told apart by their fields, anything else is sgd's ``(step, velocity
+    or None)``.  Moments go to ``device`` (default CUDA) in their dtype;
+    ``step`` becomes a host int."""
+    dev = resolve_device(device)
+    fields = getattr(state_np, "_fields", None)
+    step = int(np.asarray(state_np[0]))
+    if fields == ("step", "mu", "nu"):
+        return opt_lib.AdamWState(step=step, mu=_tensors(state_np.mu, dev),
+                                  nu=_tensors(state_np.nu, dev))
+    if fields == ("step", "stats"):
+        return opt_lib.AdafactorState(step=step, stats=_tensors(state_np.stats, dev))
+    if fields is None and len(state_np) == 2:
+        vel = state_np[1]
+        return (step, None if vel is None else _tensors(vel, dev))
+    raise ValueError(f"not an optimizer state the port knows: fields {fields}")
+
+
+def opt_state_to_jax(state, cls=None):
+    """The inverse: JAX's fields as numpy, in JAX's order — ``step`` an
+    int32 scalar array — wrapped in ``cls`` (JAX's ``AdamWState`` or
+    ``AdafactorState``) where given, else a plain tuple (sgd's state is
+    one)."""
+    def host(tree):
+        return tree_lib.tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    step = np.asarray(state[0], np.int32)
+    rest = [None if part is None else host(part) for part in state[1:]]
+    return cls(step, *rest) if cls is not None else (step, *rest)

@@ -23,6 +23,7 @@ __all__ = [
     "semiring_matmul",
     "canonical_projection",
     "sparse_canonical_projection",
+    "project_with_queries",
     "floyd_warshall_reference",
     "is_q_metric",
     "q_violation",
@@ -104,6 +105,29 @@ def sparse_canonical_projection(
         rhs = M if doubling else E
         M = torch.minimum(M, semiring_matmul(M, rhs, mode=mode, row_block=row_block))
     return M if math.isinf(q) else from_log_domain(M, q)
+
+
+def project_with_queries(
+    D: torch.Tensor, dq_rows: torch.Tensor, q: float, *, row_block: int = 32
+) -> torch.Tensor:
+    """Projected query-to-dataset distances ``E_q(x_o, x)`` for a batch of
+    queries: ``D`` the (n, n) dataset dissimilarity, ``dq_rows`` the (B, n)
+    query-to-dataset dissimilarities.  A q-shortest path from x_o to x is
+    the direct edge or an edge (x_o, z) then a q-shortest path from z to x
+    within X (x_o has degree n and appears once on a simple path):
+
+        E_q(x_o, x) = min(d(x_o, x), min_z combine(d(x_o, z), D_q(z, x)))
+
+    so one projection of D and one semiring product of the query rows by
+    D_q, both through ``semiring_matmul`` (the qpath kernel on the card)."""
+    Dq = canonical_projection(D, q, row_block=row_block)
+    if math.isinf(q):
+        via = semiring_matmul(dq_rows, Dq, mode="minmax", row_block=row_block)
+        return torch.minimum(dq_rows, via)
+    Lrows = to_log_domain(dq_rows, q)
+    LD = to_log_domain(Dq, q)
+    via = semiring_matmul(Lrows, LD, mode="logminplus", row_block=row_block)
+    return from_log_domain(torch.minimum(Lrows, via), q)
 
 
 def floyd_warshall_reference(D: torch.Tensor, q: float) -> torch.Tensor:

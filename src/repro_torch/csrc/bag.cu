@@ -57,6 +57,31 @@
 // short: on a one-id bag bag_kernel's unrolled chunk of 40 reads ~1.8 us
 // over its chunk of 4 (instruction fetch, inferred, not measured apart),
 // which a small batch does not hide.
+//
+// bag_backward: the gradient of the bag with respect to its f32 table.
+// No TPU kernel to replace: the JAX package trains through jnp.take
+// (src/repro/dist/embedlookup.py), whose VJP is XLA's scatter-add.
+// g (B, D) f32, ids (B, S) int32, optional weights (B, S) f32, grad (V, D)
+// f32 zeroed by the caller:
+//     grad[ids[b, s], d] += w[b, s] * (g[b, d] / div[b])
+// for every id >= 0, with div[b] = max(sum_s w[b, s], 1e-9) under `mean`
+// (the forward's denominator, summed in ascending s as the forward sums
+// it) and 1 under `sum`.  One thread owns one (bag, column) of g: it reads
+// g once, walks the bag's ids and adds each product to its row with an
+// f32 atomicAdd.  The products are rounded as the plain version rounds
+// them (kernels/bag/ref.py:embedding_bag_backward_ref), but the atomics
+// land in whatever order the threads reach them, so a row named by
+// several bags sums in another order than index_add_ does: the two agree
+// to rounding (rtol 1e-5 / atol 1e-7 in chip_smoke.py and the card tests),
+// not bit for bit, and two runs may differ in the last bits.
+//
+// Bound: bytes.  The ids (and weights) and g are read once; each of the
+// B * S * D contributions is a read-modify-write of a 4-byte value in L2
+// (an atomic), and the dense (V, D) gradient the caller zeroes is written
+// once.  For DeepFM's train batch (65536 x 39, D = 1, V = 30 226 432) the
+// zeroed gradient is 121 MB and the ids 10 MB: the memset, not the 2.6 M
+// atomics, is most of the bytes.  A faster design (ids sorted by row,
+// segmented sums without atomics) is later work (ROADMAP Queue 2).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -265,7 +290,52 @@ int launch_chunk(int chunk, const void* table, const int* ids,
   }
 }
 
+__global__ void __launch_bounds__(MAX_THREADS)
+    bag_backward_kernel(const float* __restrict__ g, const int* __restrict__ ids,
+                        const float* __restrict__ weights, float* __restrict__ grad,
+                        long long B, int S, int D, int mean) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= B * D) return;
+  const long long b = e / D;
+  const int d = static_cast<int>(e - b * D);
+  const int* rid = ids + b * S;
+  const float* rw = weights == nullptr ? nullptr : weights + b * S;
+  float gv = g[e];
+  if (mean) {
+    float wsum = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      const float valid = rid[s] >= 0 ? 1.0f : 0.0f;
+      wsum = __fadd_rn(wsum, rw == nullptr ? valid : __fmul_rn(rw[s], valid));
+    }
+    gv = __fdiv_rn(gv, fmaxf(wsum, 1e-9f));
+  }
+  for (int s = 0; s < S; ++s) {
+    const int id = rid[s];
+    if (id < 0) continue;
+    const float contrib = rw == nullptr ? gv : __fmul_rn(rw[s], gv);
+    atomicAdd(grad + static_cast<size_t>(id) * D + d, contrib);
+  }
+}
+
 }  // namespace
+
+// The bag's backward (see the header): grad (V, D) must be zeroed by the
+// caller; threads a block (whole warps, at most MAX_THREADS), one thread
+// an element of g.
+extern "C" int bag_backward(const float* g, const int* ids, const float* weights,
+                            float* grad, long long B, int S, int D, int mean,
+                            int threads, void* stream) {
+  if (B < 0 || S < 0 || D < 1 || threads < 32 || threads > MAX_THREADS ||
+      threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (B * D + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  bag_backward_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(g, ids, weights, grad, B, S,
+                                                             D, mean);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // table_dtype: a TableDtype code; the output is f32 whatever the table.
 // threads, bags, chunk, window, warp: the launch plan (bag.py:launch_plan)

@@ -21,7 +21,10 @@ the formulas below, which ``chip_smoke.py``'s bounds are built from too:
   + k·n + m·n);
 * bag: two f32 instructions per (bag, id, column); bytes the distinct
   32-byte table sectors its ids name, the ids (and weights) and the
-  output.
+  output;
+* the bag's backward: two f32 instructions per (bag, id, column) (the
+  product and its add); bytes the ids (and weights), the output gradient
+  g and the dense (V, D) table gradient written once.
 
 A kernel's plain version (the CPU path) runs with the torch dispatch
 modes suspended, so ``core/profile``'s counters of the torch work outside
@@ -166,3 +169,12 @@ def bag_work(ids, D: int, *, weighted: bool, elem: int, reuse: bool = True) -> t
     read = int(torch.unique(sectors).numel()) if reuse else int(sectors.numel())
     return (2 * B * S * D, "f32_instr",
             32 * read + 4 * B * S * (2 if weighted else 1) + 4 * B * D)
+
+
+def bag_backward_work(ids, D: int, num_rows: int, *, weighted: bool) -> tuple:
+    """The bag's backward over (B, S) ``ids`` into a (``num_rows``, D)
+    gradient: each input read once (ids, weights, g) and the dense output
+    written once."""
+    B, S = ids.shape
+    return (2 * B * S * D, "f32_instr",
+            4 * B * S * (2 if weighted else 1) + 4 * B * D + 4 * num_rows * D)

@@ -1,5 +1,7 @@
 """ctypes binding of ``csrc/bag.cu`` — the embedding bag on the card
-(replaces ``repro/kernels/bag/bag.py:_bag_kernel``), and its launch plan."""
+(replaces ``repro/kernels/bag/bag.py:_bag_kernel``), its launch plan, and
+its backward (``bag_backward``: the gradient with respect to an f32 table,
+which has no TPU kernel: JAX gets it as XLA's scatter-add)."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +11,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bag.ref import TABLE_DTYPES, check_args
+from repro_torch.kernels.bag.ref import TABLE_DTYPES, check_args, check_backward_args
 
 #: must match ``csrc/bag.cu``: the most threads a block takes, the chunk
 #: lengths G the kernel is instanced for (gathers a thread keeps in flight
@@ -29,6 +31,8 @@ WARP_GATHERS = 2 * WARP
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
              + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+_BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
 
 
 class BagPlan(NamedTuple):
@@ -133,6 +137,9 @@ def embedding_bag_cuda(
     own dtype (no f32 copy); ids are taken as int32 (a copy when they are
     not).  ``plan`` forces a launch (default: ``launch_plan``)."""
     check_args(table, ids, weights, combine)
+    if table.dtype not in TABLE_DTYPES:
+        raise ValueError(f"embedding_bag_cuda takes an f32, bf16 or f16 table, "
+                         f"got {table.dtype}")
     if not (table.is_cuda and ids.is_cuda and (weights is None or weights.is_cuda)):
         raise ValueError("embedding_bag_cuda takes CUDA tensors")
     # each conversion only where needed: a serve step pays its host time
@@ -161,3 +168,45 @@ def embedding_bag_cuda(
     _build.check(err, "bag_f32")
     _build.note_launch("bag")
     return out
+
+
+def embedding_bag_backward_cuda(
+    grad_out: torch.Tensor,
+    ids: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    num_rows: int,
+    *,
+    combine: str = "sum",
+) -> torch.Tensor:
+    """grad_out (B, D) f32, ids (B, S), weights (B, S) or None, all CUDA ->
+    the dense (num_rows, D) f32 gradient of the bag with respect to its
+    table, by the ``bag_backward`` kernel (f32 atomics: equal to
+    ``embedding_bag_backward_ref`` to rounding, not bit for bit)."""
+    check_backward_args(grad_out, ids, weights, combine)
+    if grad_out.dtype != torch.float32:
+        raise ValueError(f"embedding_bag_backward_cuda takes an f32 output gradient, "
+                         f"got {grad_out.dtype}")
+    if not (grad_out.is_cuda and ids.is_cuda and (weights is None or weights.is_cuda)):
+        raise ValueError("embedding_bag_backward_cuda takes CUDA tensors")
+    if not grad_out.is_contiguous():
+        grad_out = grad_out.contiguous()
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    if weights is not None and (weights.dtype != torch.float32
+                                or not weights.is_contiguous()):
+        weights = weights.float().contiguous()
+    B, S = ids.shape
+    D = grad_out.shape[1]
+    grad = torch.zeros((num_rows, D), dtype=torch.float32, device=grad_out.device)
+    if B == 0 or S == 0 or D == 0:
+        return grad
+    fn = _FN.get("bag_backward")
+    if fn is None:
+        fn = _FN["bag_backward"] = _build.function("bag_backward", _BACKWARD_ARGTYPES)
+    err = fn(grad_out.data_ptr(), ids.data_ptr(),
+             None if weights is None else weights.data_ptr(), grad.data_ptr(),
+             B, S, D, int(combine == "mean"), MAX_THREADS,
+             _build.stream_handle(grad_out.device))
+    _build.check(err, "bag_backward")
+    _build.note_launch("bag_backward")
+    return grad

@@ -15,8 +15,11 @@ Parameters are a tree under the declaration names of ``recsys_decls``, in
 JAX's layouts (``x @ w`` with w (fan-in, fan-out)): a plain dict of
 tensors, or a ``RecsysModel``, which holds the same tree as an
 ``nn.Module``.  ``retrieval_score`` serves the ``retrieval_cand`` shape:
-one query embedding against n_candidates item embeddings.  Training (the
-bag's backward) waits for a later slice.
+one query embedding against n_candidates item embeddings.  Under autograd
+the bags run through ``kernels/bag``'s ``BagFunction`` (the bag's
+backward kernel on the card), so ``recsys_loss`` trains every table.
+The xDeepFM CIN runs over batch chunks of ``CIN_CHUNK`` rows (the
+``serve_bulk`` batch would need an 82 GB outer product whole).
 """
 from __future__ import annotations
 
@@ -37,13 +40,30 @@ from repro_torch.models.params import Param
 PyTree = Any
 
 
+#: rows of the xDeepFM CIN computed at once: its (rows, 200, 39, 10) f32
+#: outer product is 5.1 GB at 16 384 rows, against 81.8 GB for the whole
+#: serve_bulk batch of 262 144 (training microbatches are 8 192 rows)
+CIN_CHUNK = 16384
+
+#: (config, device) -> its field offsets on that device, made once
+_OFFSETS: dict = {}
+
+
 def field_offsets(cfg: RecsysConfig, device: DeviceLike = "cpu") -> torch.Tensor:
-    """(F,) int32: the first row of each field in the concatenated table."""
-    vocabs = list(cfg.vocabs[: cfg.n_sparse])
-    starts = [0]
-    for v in vocabs[:-1]:
-        starts.append(starts[-1] + v)
-    return torch.tensor(starts, dtype=torch.int32, device=device)
+    """(F,) int32: the first row of each field in the concatenated table.
+    Cached per (config, device), so a step copies nothing to the card;
+    made outside inference mode, so training may use it too.  Read-only."""
+    dev = torch.device(device)
+    key = (cfg, dev)
+    out = _OFFSETS.get(key)
+    if out is None:
+        vocabs = list(cfg.vocabs[: cfg.n_sparse])
+        starts = [0]
+        for v in vocabs[:-1]:
+            starts.append(starts[-1] + v)
+        with torch.inference_mode(False):
+            out = _OFFSETS[key] = torch.tensor(starts, dtype=torch.int32, device=dev)
+    return out
 
 
 def _padded_vocab(cfg: RecsysConfig, multiple: int = 2048) -> int:
@@ -119,6 +139,17 @@ class RecsysModel(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def tree(self) -> dict:
+        """The parameters as a plain tree (dicts and lists of tensors that
+        share this module's storage, detached): what ``make_train_step``
+        and the optimizers take."""
+        out: dict = {}
+        for name, value in self.named_children():
+            out[name] = [{k: v.detach() for k, v in layer.items()} for layer in value]
+        for name, value in self.named_parameters(recurse=False):
+            out[name] = value.detach()
+        return out
+
     @classmethod
     def build(cls, cfg: RecsysConfig, *, device: DeviceLike = None,
               generator: Optional[torch.Generator] = None) -> "RecsysModel":
@@ -172,7 +203,17 @@ def _mlp(params_list, x: torch.Tensor) -> torch.Tensor:
 
 
 def _cin(params_list, x0: torch.Tensor) -> torch.Tensor:
-    """Compressed Interaction Network (xDeepFM). x0 (B, F, D) -> (B, sum Hk)."""
+    """Compressed Interaction Network (xDeepFM). x0 (B, F, D) -> (B, sum Hk),
+    ``CIN_CHUNK`` rows at a time: each row's value is its own, but a batched
+    product rounds with its batch size, so chunked and whole agree to
+    rounding (rtol 1e-5, tests/test_torch_train.py)."""
+    if x0.shape[0] > CIN_CHUNK:
+        return torch.cat([_cin_rows(params_list, x0[i:i + CIN_CHUNK])
+                          for i in range(0, x0.shape[0], CIN_CHUNK)])
+    return _cin_rows(params_list, x0)
+
+
+def _cin_rows(params_list, x0: torch.Tensor) -> torch.Tensor:
     pooled = []
     xk = x0
     for layer in params_list:

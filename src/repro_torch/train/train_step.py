@@ -1,21 +1,115 @@
-"""Serve-step factories (port of ``repro/train/train_step.py``).
+"""Train and serve step factories (port of ``repro/train/train_step.py``).
 
-``make_serve_step(cfg, "recsys")`` scores a batch of ids (the
-``serve_p99`` / ``serve_bulk`` shapes); ``make_retrieval_step(cfg, k=)``
-embeds the query ids and returns the top-k candidates (the
-``retrieval_cand`` shape).  Each returned step takes ``(params, batch)``,
-with ``params`` a ``models.recsys.RecsysModel`` or the same tree as a
-dict, and runs under ``torch.inference_mode``.  The train step (the bag's
-backward, the optimizer, gradient compression), the GNN serve step and the
-LM decode and prefill steps wait for their slices.
+``make_train_step(cfg, "recsys", opt)`` returns ``train_step(params,
+opt_state, batch) -> (params, opt_state, metrics)``: the loss and its
+gradient over every leaf of the parameter tree (``torch.autograd.grad``),
+optional microbatch accumulation and int8 gradient compression, then
+``opt.update``.  ``make_serve_step(cfg, "recsys")`` scores a batch of ids
+(the ``serve_p99`` / ``serve_bulk`` shapes; the xDeepFM CIN in chunks of
+``models.recsys.CIN_CHUNK`` rows); ``make_retrieval_step(cfg, k=)`` embeds the
+query ids and returns the top-k candidates (``retrieval_cand``).  Serve
+steps take ``(params, batch)``, with ``params`` a ``models.recsys.
+RecsysModel`` or the same tree as a dict, and run under
+``torch.inference_mode``.  The ``lm`` and ``gnn`` families wait for their
+slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.models.recsys import recsys_forward, retrieval_score, user_embedding
+from repro_torch.dist import compression as comp_lib
+from repro_torch.models.recsys import (
+    recsys_forward, recsys_loss, retrieval_score, user_embedding,
+)
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import tree as tree_lib
+
+Tree = Any
+
+#: the slice that brings each family the port does not train yet
+UNPORTED_FAMILIES = {
+    "lm": "the LM stack (ROADMAP Queue 1, item 3)",
+    "gnn": "the GNN (ROADMAP Queue 1, item 2)",
+}
+
+
+def _loss_fn_for(family: str):
+    if family == "recsys":
+        return recsys_loss
+    if family in UNPORTED_FAMILIES:
+        raise KeyError(f"family {family!r} is not ported yet: it comes with "
+                       f"{UNPORTED_FAMILIES[family]}")
+    raise KeyError(family)
+
+
+def value_and_grad(loss_fn: Callable, params: Tree, batch: dict, cfg) -> tuple:
+    """(grads as ``params``' tree, metrics detached) of ``loss_fn(params,
+    batch, cfg) -> (loss, metrics)``.  The leaves are detached views that
+    require grad (no copy); parameters made under ``inference_mode`` cannot
+    be saved for backward and are refused."""
+    flat, spec = tree_lib.flatten(params)
+    if any(p.is_inference() for p in flat):
+        raise ValueError("training parameters were made under torch.inference_mode; "
+                         "make them outside it")
+    live = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_lib.unflatten(spec, live), batch, cfg)
+        grads = torch.autograd.grad(loss, live)
+    return (tree_lib.unflatten(spec, list(grads)),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def make_train_step(
+    cfg,
+    family: str,
+    opt: opt_lib.Optimizer,
+    *,
+    microbatches: int = 1,
+    grad_compression: Optional[str] = None,
+) -> Callable:
+    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  With ``microbatches`` > 1 the leading batch dimension is
+    split, the gradients are accumulated in the parameter dtype and divided
+    by ``microbatches``, and the metrics are the last microbatch's, as in
+    JAX.  ``grad_compression="int8"`` sends the gradients through
+    ``fake_int8_roundtrip`` before the update."""
+    loss_fn = _loss_fn_for(family)
+    if grad_compression not in (None, "int8"):
+        raise ValueError(f"unknown grad_compression {grad_compression!r}")
+
+    def compute_grads(params, batch):
+        if microbatches <= 1:
+            return value_and_grad(loss_fn, params, batch, cfg)
+
+        def split(x):
+            b = x.shape[0]
+            assert b % microbatches == 0, (b, microbatches)
+            return x.reshape(microbatches, b // microbatches, *x.shape[1:])
+
+        parts = {k: split(v) for k, v in batch.items()}
+        # accumulate in the parameter dtype, as JAX does (a bf16 model's
+        # f32 accumulator would double gradient memory); f32 params keep
+        # f32 accumulation
+        acc = tree_lib.tree_map(lambda p: torch.zeros(p.shape, dtype=p.dtype,
+                                                      device=p.device), params)
+        metrics = None
+        for i in range(microbatches):
+            grads, metrics = value_and_grad(loss_fn, params,
+                                            {k: v[i] for k, v in parts.items()}, cfg)
+            acc = tree_lib.tree_map(lambda a, g: a + g.to(a.dtype), acc, grads)
+            del grads
+        return tree_lib.tree_map(lambda g: g / microbatches, acc), metrics
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = compute_grads(params, batch)
+        if grad_compression == "int8":
+            grads = comp_lib.fake_int8_roundtrip(grads)
+        new_params, new_state = opt.update(grads, opt_state, params)
+        return new_params, new_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg, family: str) -> Callable:
@@ -23,7 +117,6 @@ def make_serve_step(cfg, family: str) -> Callable:
     click probabilities (B,)."""
     if family != "recsys":
         raise KeyError(f"no serve step for family {family!r} in the port yet")
-
     def serve(params, batch):
         with torch.inference_mode():
             return torch.sigmoid(recsys_forward(params, batch["ids"], cfg))

@@ -69,7 +69,8 @@ def _normal(shape, seed, dev):
 def test_build_reports_every_kernel(cuda):
     info = _build.build()
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
-                 "min_splits_kernel", "bag_kernel", "bag_warp_kernel", "merge_kernel",
+                 "min_splits_kernel", "bag_kernel", "bag_warp_kernel", "bag_backward_kernel",
+                 "merge_kernel",
                  "sqnorm_kernel"):
         assert name in info["ptxas"]
 
@@ -512,7 +513,8 @@ def test_small_index_build_launches_every_kernel(cuda):
     counts = _build.launches()
     assert counts == {"topk/f32": 1, "topk/cube": 0, "topk/int8": 0,
                       "pdist/matmul": 1, "pdist/cube": 0, "qpath/minplus": 0,
-                      "qpath/minmax": 0, "qpath/logminplus": 4, "bag": 0}
+                      "qpath/minmax": 0, "qpath/logminplus": 4, "bag": 0,
+                      "bag_backward": 0}
     res = index.search(X[:80], k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
@@ -989,3 +991,159 @@ def test_sharded_brute_equals_one_shard_on_the_card(cuda, shards):
     qsh = index_lib.build("sharded", Y, {"engine": "brute", "shards": shards, "quant": True},
                           device=cuda).search(Q.to(cuda), k=10)
     assert bool((qsh.dist <= qone.dist + 5e-4 + 1e-5 * qone.dist.abs()).all())
+
+
+# the bag's backward (csrc/bag.cu:bag_backward): f32 atomics land in any
+# order, so on gradients of any value it agrees with the plain backward to
+# rounding only.  The cases below are made so that no order rounds: small
+# integer weights and gradients (under mean an integer times the bag's
+# weight sum) make every contribution and partial sum an exact f32 integer
+# (tests/test_torch_bag_grad.py), and the kernel must equal the plain
+# backward bit for bit; a row that every bag names (the 100-id field) then
+# fails on any dropped or misplaced add.  Rows named once hold the
+# products' rounding on normal values.
+def _exact_grad(ids, V, weighted, D, combine, seed):
+    """Integer-valued (g, weights) for ``ids``, and the most any row's
+    partial sums reach (< 2^24: exact in f32)."""
+    from repro_torch.kernels.bag.ref import bag_scale, embedding_bag_backward_ref
+
+    rng = np.random.default_rng(seed)
+    B, S = ids.shape
+    w = (torch.as_tensor(rng.integers(1, 4, size=(B, S)).astype(np.float32),
+                         device=ids.device) if weighted else None)
+    k = torch.as_tensor(rng.integers(-4, 5, size=(B, D)).astype(np.float32), device=ids.device)
+    g = k * bag_scale(ids, w, combine)[1]
+    reach = embedding_bag_backward_ref(k.abs(), ids, w, V)
+    return g, w, float(reach.max())
+
+
+# (B, S, D, V): DeepFM's first-order term at the train batch (ids from 39
+# fields of few rows each, so rows repeat across bags), a 100-id field at
+# B = 65 536 (about 59 000 adds a row), duplicates within a bag, one bag,
+# one id
+BAG_GRAD_SHAPES = [(65536, 39, 1, 5000), (65536, 100, 1, 100), (300, 39, 10, 50),
+                   (1, 7, 3, 4), (5, 1, 1, 2)]
+
+
+@pytest.mark.parametrize("shape", BAG_GRAD_SHAPES)
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_backward_kernel_matches_plain(cuda, shape, combine, weighted):
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref
+
+    B, S, D, V = shape
+    _, ids, _ = _bag_case(cuda, B, S, D, seed=sum(shape), pad=0.1, weighted=False, V=V)
+    ids[0] = -1  # an all-padding bag
+    g, w, reach = _exact_grad(ids, V, weighted, D, combine, seed=9)
+    assert reach < 2 ** 24
+    before = _build.launches()["bag_backward"]
+    out = embedding_bag_backward_cuda(g, ids, w, V, combine=combine)
+    torch.cuda.synchronize()
+    assert _build.launches()["bag_backward"] == before + 1
+    ref = embedding_bag_backward_ref(g, ids, w, V, combine=combine)
+    assert out.shape == (V, D) and out.dtype == torch.float32
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(embedding_bag_backward_cuda(g, ids.long(), w, V, combine=combine), out)
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bag_backward_kernel_rounds_products_as_plain(cuda, combine, weighted):
+    """Normal gradients and real weights, every row named at most once: each
+    row holds one product, rounded as the plain version rounds it."""
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref
+
+    B, S, D = 4096, 39, 3
+    V = B * S + 17
+    rng = np.random.default_rng(4)
+    ids_np = rng.permutation(V)[:B * S].reshape(B, S).astype(np.int32)
+    ids_np[rng.random((B, S)) < 0.1] = -1
+    ids = torch.as_tensor(ids_np, device=cuda)
+    w = (torch.as_tensor(rng.uniform(0.5, 1.5, size=(B, S)).astype(np.float32), device=cuda)
+         if weighted else None)
+    g = _normal((B, D), 7, cuda)
+    out = embedding_bag_backward_cuda(g, ids, w, V, combine=combine)
+    assert torch.equal(out, embedding_bag_backward_ref(g, ids, w, V, combine=combine))
+
+
+def test_bag_backward_kernel_refuses(cuda):
+    from repro_torch.kernels.bag import ops
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="f32 output gradient"):
+        embedding_bag_backward_cuda(torch.zeros((2, 4), dtype=torch.float64, device=cuda),
+                                    ids, None, 10)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embedding_bag_backward_cuda(torch.zeros((2, 4), device=cuda), ids.cpu(), None, 10)
+    t64 = torch.zeros((10, 4), dtype=torch.float64, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="f32, bf16 or f16 table"):
+        ops.embedding_bag(t64, ids)
+
+
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_bag_autograd_on_card_launches_both_kernels(cuda, combine):
+    from repro_torch.kernels.bag import ops
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref
+
+    table, ids, _ = _bag_case(cuda, 4096, 39, 1, seed=5, V=3000, weighted=False)
+    g, w, _ = _exact_grad(ids, 3000, True, 1, combine, seed=6)
+    t = table.clone().requires_grad_(True)
+    _build.reset_launches()
+    out = ops.embedding_bag(t, ids, w, combine=combine)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    counts = _build.launches()
+    assert counts["bag"] == 1 and counts["bag_backward"] == 1
+    assert torch.equal(out.detach(), embedding_bag_ref(table, ids, w, combine=combine))
+    assert torch.equal(t.grad, embedding_bag_backward_ref(g, ids, w, 3000, combine=combine))
+
+
+@pytest.mark.parametrize("arch", ["fm", "deepfm", "xdeepfm", "autoint"])
+@pytest.mark.parametrize("mode", [{}, {"microbatches": 2}, {"grad_compression": "int8"}])
+def test_recsys_train_step_on_card_matches_cpu(cuda, arch, mode):
+    """Three AdamW steps of the reduced config on the card (the bag and its
+    backward kernel) against the same steps on the CPU: losses rtol 1e-5,
+    parameters rtol 1e-5 / atol 1e-6 (sums in another order, atomics)."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import recsys_batch
+    from repro_torch.models import params, recsys
+    from repro_torch.train import optimizer, tree
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = configs.get_reduced(arch)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p_gpu = params.init_params(recsys.recsys_decls(cfg), generator=gen, device=cuda)
+    p_cpu = tree.tree_map(lambda t: t.cpu(), p_gpu)
+    opt = optimizer.adamw(1e-3)
+    s_gpu, s_cpu = opt.init(p_gpu), opt.init(p_cpu)
+    step = make_train_step(cfg, "recsys", opt, **mode)
+    _build.reset_launches()
+    for t in range(3):
+        b = recsys_batch(t, 64, cfg.vocabs)
+        p_gpu, s_gpu, m_gpu = step(p_gpu, s_gpu, {k: torch.as_tensor(v, device=cuda)
+                                                  for k, v in b.items()})
+        p_cpu, s_cpu, m_cpu = step(p_cpu, s_cpu, {k: torch.as_tensor(v) for k, v in b.items()})
+        assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-5)
+    torch.cuda.synchronize()
+    per = 3 * mode.get("microbatches", 1)
+    assert _build.launches()["bag"] == per and _build.launches()["bag_backward"] == per
+    for (key, a), (_, b) in zip(tree.paths(p_gpu), tree.paths(p_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=key)
+
+
+def test_checkpoint_restores_on_the_card(cuda, tmp_path):
+    from repro_torch.train import checkpoint, optimizer
+
+    params = {"table": _normal((1000, 10), 1, cuda), "bias": torch.zeros(1, device=cuda)}
+    opt = optimizer.adamw()
+    state = opt.init(params)
+    saver = checkpoint.AsyncCheckpointer(str(tmp_path))
+    saver.save(4, (params, state))
+    saver.wait()
+    (p, s), step = checkpoint.restore(str(tmp_path), (params, state))
+    assert step == 4 and s.step == 0 and p["table"].is_cuda
+    assert torch.equal(p["table"], params["table"])

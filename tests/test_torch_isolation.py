@@ -56,6 +56,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import repro_torch.kernels.bag.ops, repro_torch.models.recsys, "
         "repro_torch.configs, repro_torch.configs.deepfm, "
         "repro_torch.train.train_step, repro_torch.data.tokens\n"
+        "import repro_torch.train.checkpoint, repro_torch.train.fault, "
+        "repro_torch.train.optimizer, repro_torch.train.tree, "
+        "repro_torch.dist.compression, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"

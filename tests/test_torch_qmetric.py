@@ -142,3 +142,21 @@ def test_q_violation_detects_what_the_jax_oracle_misses(q, violation):
     assert float(jq.q_violation(jnp.asarray(D), q)) == 0.0
     assert float(tq.q_violation(torch.as_tensor(D), q)) == pytest.approx(violation)
     assert not tq.is_q_metric(torch.as_tensor(D), q)
+
+
+@pytest.mark.parametrize("q", [2.0, math.inf])
+def test_project_with_queries_matches_jax(q):
+    """E_q of 12 queries over 40 points: the port's projection of D and its
+    product of the query rows by D_q against JAX's (rtol 1e-5 / atol 2e-5,
+    the projection's tolerance above); never above the direct distance."""
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(52, 6)).astype(np.float32)
+    D = np.array(jmetrics.pairwise(jnp.asarray(X[:40]), jnp.asarray(X[:40])))
+    np.fill_diagonal(D, 0.0)
+    D = (D + D.T) / 2
+    rows = np.array(jmetrics.pairwise(jnp.asarray(X[40:]), jnp.asarray(X[:40])))
+    ref = jq.project_with_queries(jnp.asarray(D), jnp.asarray(rows), q, row_block=16)
+    out = tq.project_with_queries(torch.as_tensor(D), torch.as_tensor(rows), q,
+                                  row_block=16)
+    np.testing.assert_allclose(to_np(out), to_np(ref), rtol=1e-5, atol=2e-5)
+    assert (to_np(out) <= rows * (1 + 1e-6)).all()
