@@ -191,6 +191,30 @@ Phases, in order; any failure exits non-zero:
    q = 16 and 32: the projection keeps the nearest neighbour, not the
    order of the next nine).
 
+12. The GCN (serve and train) and dense-LM serving at full width
+   (``phase_models``, after phase 11; no kernel lies on either path, so
+   every counter must read 0 in every window).  smollm-135m and gemma-2b
+   at published widths and full depth, random weights from ``--seed``,
+   prompts from ``TokenStream``, TF32 off: the checks first (f32
+   activations: every position decoded through the cache against the
+   forward, prefill's last logits against the forward's last row, the card
+   against the CPU on the same weights and prompt, each rtol / atol 1e-4;
+   the bf16 logits' largest difference from the f32 ones over their
+   standard deviation, read), then ``LM_ROWS``: prefill at 4 x 32 768
+   (smollm, the chunked path) and 4 x 4 096 (gemma) by
+   ``make_prefill_step``, decode at batch 32 over a 32 768-position cache
+   and (smollm) batch 1 over 524 288, each filled by a 4 096-token prompt,
+   16 greedy ``make_decode_step`` calls; each ``lm`` line prints p50 ms,
+   tokens/s, peak memory, its bound and its cuts (``reduced``).  Then
+   ``gcn-cora`` on the four ``GNN_SHAPES`` (full_graph_sm, minibatch_lg
+   sampled from a 232 965-node host graph, ogb_products, molecule: 128
+   graphs packed), each a serve step timed 5 times and 10 AdamW(1e-2)
+   steps; ``gnn`` lines print p50s, peak memory, bounds and the loss after
+   10 steps; full_graph_sm is held against the CPU (logits rtol / atol
+   1e-5, three train losses rtol 1e-5) and ogb_products' f32 forward
+   against its f64 forward on the card (1e-4).  Every line names the card
+   and its power limit.
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
 minmax, the bench-config q=2 build, the infinity retrieval and the
@@ -1500,17 +1524,17 @@ def plain_bag():
         recsys_lib.embedding_bag = saved
 
 
-def _timed_calls(fn, reps: int):
-    """Two warm-up calls, then ``reps`` calls, each synchronised and timed
+def _timed_calls(fn, reps: int, warmup: int = 2):
+    """``warmup`` calls, then ``reps`` calls, each synchronised and timed
     on the host clock.  Returns (the last result, seconds per timed call)."""
     import torch
 
     times = []
-    for i in range(reps + 2):
+    for i in range(reps + warmup):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        if i >= 2:
+        if i >= warmup:
             times.append(time.perf_counter() - t0)
     return out, times
 
@@ -3838,6 +3862,439 @@ def phase_training(sweeps: dict) -> tuple[list[dict], dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the GCN (serve and train) and dense-LM serving at full width
+# ---------------------------------------------------------------------------
+
+LM_REPS = 5  # timed calls of a prefill row, after one warm-up
+LM_DECODE_STEPS = 16  # greedy steps of a decode row; the first is the warm-up
+LM_PROMPT = 4096  # the decode rows' prompt, prefilled into the cache
+# (arch, row, configs.base.LM_SHAPES name, batch, sequence or cache length,
+# the cuts of that shape): smollm-135m and gemma-2b at published widths and
+# full depth, random weights from --seed
+LM_ROWS = (
+    ("smollm-135m", "prefill", "prefill_32k", 4, 32768,
+     ["batch 4 of 32: JAX's chunk schedule holds (B, KV, G, S, 1024) scores a "
+      "chunk, 19.3 GB bf16 + 38.7 GB f32 at 32"]),
+    ("smollm-135m", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128: the bf16 cache is 96.6 GB at 128",
+      "the cache holds a 4096-token prompt"]),
+    ("smollm-135m", "long decode", "long_500k", 1, 524288,
+     ["the cache holds a 4096-token prompt: prefilling 524288 tokens through the "
+      "chunk schedule takes minutes"]),
+    ("gemma-2b", "prefill", "prefill_32k", 4, 4096,
+     ["batch 4 of 32", "4096 tokens of 32768"]),
+    ("gemma-2b", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128: the bf16 cache is 77.3 GB at 128, beside 10 GB of parameters",
+      "the cache holds a 4096-token prompt"]),
+)
+# teacher forcing and bf16 against f32 at (B, S), and the card against the
+# CPU at (B, S): f32 activations, TF32 off
+LM_CHECK = {"smollm-135m": ((2, 64), (2, 64)), "gemma-2b": ((2, 64), (1, 16))}
+LM_RTOL = LM_ATOL = 1e-4
+GNN_SERVE_REPS = 5  # timed, after one warm-up
+GNN_TRAIN_STEPS = 10  # AdamW steps; the p50 is over the nine after the first
+GNN_LR = 1e-2  # launch/train.py's AdamW for gcn-cora
+GNN_CPU_STEPS = 3
+# full_graph_sm on the card against the CPU (index_add sums with atomics on
+# the card, in another order)
+GNN_RTOL = GNN_ATOL = 1e-5
+# ogb_products in f32 against the same forward in f64 on the card: each
+# logit within 1e-4 of its f64 value, relative, plus 1e-4 of the f64
+# logits' rms (a logit near 0 is a difference of terms ~its rms in size)
+GNN_F64_RTOL = 1e-4
+
+
+def _lm_tokens(cfg, batch: int, seq: int, seed: int, dev):
+    """``TokenStream(vocab, seq, batch, seed=seed).batch(0)`` on ``dev``."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+
+    toks = TokenStream(cfg.vocab_size, seq, batch, seed=seed).batch(0)["tokens"]
+    return torch.as_tensor(toks, device=dev)
+
+
+def _lm_layer_params(cfg) -> int:
+    """Parameters of the layers' matmuls (every token multiplies each once)."""
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return cfg.num_layers * (2 * d * H * Dh + 2 * d * KV * Dh + 3 * d * cfg.d_ff)
+
+
+def _lm_cache_bytes(cfg, batch: int, T: int) -> int:
+    return (2 * cfg.num_layers * batch * T * cfg.num_kv_heads * cfg.head_dim
+            * cfg.act_dtype().itemsize)
+
+
+def _lm_bound(cfg, batch: int, S: int, T: int, read_cache: int) -> dict:
+    """The least time of one LM call on ``batch`` sequences of ``S`` new
+    tokens against a cache of ``T`` positions (prefill: S = T, causal;
+    decode: S = 1, attending to ``read_cache`` positions): the layers'
+    matmuls, the attention's two products and the head's (last token
+    only) at the bf16 peak; the bytes of every parameter (f32, as stored),
+    the cache read (``read_cache`` positions) or written (``T``), and the
+    tokens and logits."""
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import transformer
+
+    H, Dh, L = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    pairs = batch * S * (S + 1) / 2 if S > 1 else batch * read_cache
+    flops = (2 * _lm_layer_params(cfg) * batch * S + 4 * H * Dh * L * pairs
+             + 2 * cfg.d_model * cfg.vocab_size * batch)
+    cache = _lm_cache_bytes(cfg, batch, T if S > 1 else read_cache)
+    nbytes = (params_lib.param_bytes(transformer.lm_decls(cfg)) + cache + 4 * batch * S
+              + cfg.vocab_size * batch * cfg.act_dtype().itemsize)
+    return _bound(flops, "bf16", nbytes)
+
+
+def _lm_checks(arch: str, model, seed: int, smi: str) -> dict:
+    """Teacher forcing (every position decoded through the cache equals
+    the forward; prefill's last logits the forward's last row), the card
+    against the CPU (the same weights and prompt) — both with f32
+    activations, held at LM_RTOL / LM_ATOL — and bf16 against f32 on the
+    card (the largest logit difference over the f32 logits' standard
+    deviation, read, not held)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as tree_lib
+
+    dev = torch.device(DEVICE)
+    cfg = model.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    (B, S), (Bc, Sc) = LM_CHECK[arch]
+    toks = _lm_tokens(cfg, B, S, seed + 1, dev)
+    with torch.inference_mode():
+        full = tf.lm_forward(model, toks, cfg32)[0]
+        cache = tf.init_cache(cfg32, B, S, device=dev)
+        steps = torch.cat([tf.lm_decode_step(model, cache, toks[:, t:t + 1], t, cfg32)[0]
+                           for t in range(S)], dim=1)
+        last, _ = tf.lm_prefill(model, toks, cfg32)
+        half = tf.lm_forward(model, toks, cfg)[0].float()
+        card = tf.lm_forward(model, toks[:Bc, :Sc], cfg32)[0]
+    def within(out, ref):
+        """(max |out - ref|, whether within LM_RTOL / LM_ATOL, the largest
+        |out - ref| / (LM_ATOL + LM_RTOL |ref|): the margin)."""
+        err, ok = close_matmul(out, ref, rtol=LM_RTOL, atol=LM_ATOL)
+        ratio = float(((out - ref).abs() / (LM_ATOL + LM_RTOL * ref.abs())).max())
+        return err, ok, ratio
+
+    tf_err, tf_ok, tf_ratio = within(steps, full)
+    pf_err, pf_ok, pf_ratio = within(last[:, 0], full[:, -1])
+    cpu = tf.LMModel(cfg, tree_lib.tree_map(lambda t: t.cpu(), model.tree()))
+    with torch.inference_mode():
+        ref = tf.lm_forward(cpu, toks[:Bc, :Sc].cpu(), cfg32)[0]
+    del cpu
+    cc_err, cc_ok, cc_ratio = within(card.cpu(), ref)
+    out = {"arch": arch, "check": "teacher forcing, card against CPU, bf16 against f32",
+           "teacher_forcing": {"batch": B, "seq": S, "max_abs_err": tf_err, "ok": tf_ok,
+                               "of_tolerance": tf_ratio},
+           "prefill_vs_forward": {"max_abs_err": pf_err, "ok": pf_ok,
+                                  "of_tolerance": pf_ratio},
+           "card_vs_cpu": {"batch": Bc, "seq": Sc, "max_abs_err": cc_err, "ok": cc_ok,
+                           "of_tolerance": cc_ratio},
+           "bf16_vs_f32": {"max_abs_diff": float((half - full).abs().max()),
+                           "f32_std": float(full.std()),
+                           "over_std": float((half - full).abs().max() / full.std())},
+           "rtol": LM_RTOL, "atol": LM_ATOL, "device": smi}
+    if not (tf_ok and pf_ok and cc_ok and math.isfinite(out["bf16_vs_f32"]["over_std"])):
+        fail(f"lm {arch} checks: {json.dumps(out)}")
+    return out
+
+
+def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
+    """One ``LM_ROWS`` row as a counted window that must launch no kernel:
+    a prefill row times LM_REPS ``make_prefill_step`` calls after a warm-up;
+    a decode row prefills LM_PROMPT tokens into a cache of T positions and
+    times LM_DECODE_STEPS ``make_decode_step`` calls (p50 over all but the
+    first)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import greedy
+    from repro_torch.train.train_step import make_decode_step, make_prefill_step
+
+    arch, row, shape, B, T, cuts = spec
+    cfg = model.cfg
+    dev = torch.device(DEVICE)
+    V = cfg.vocab_size
+    out = {"arch": arch, "row": row, "shape": shape, "batch": B}
+    _peak_reset()
+    if row == "prefill":
+        toks = _lm_tokens(cfg, B, T, seed, dev)
+        prefill = make_prefill_step(cfg, max_len=T + LM_DECODE_STEPS)
+        (res, times), counts = counted(
+            lambda: _timed_calls(lambda: prefill(model, toks), LM_REPS, warmup=1))
+        last, cache = res
+        if tuple(last.shape) != (B, 1, V) or not bool(torch.isfinite(last).all()):
+            fail(f"lm {arch} {row}: logits {tuple(last.shape)} or not finite")
+        want = (cfg.num_layers, B, T + LM_DECODE_STEPS, cfg.num_kv_heads, cfg.head_dim)
+        if tuple(cache["dense"]["k"].shape) != want:
+            fail(f"lm {arch} {row}: cache {tuple(cache['dense']['k'].shape)}, want {want}")
+        del res, last, cache
+        p50 = float(np.median(times))
+        bound = _lm_bound(cfg, B, T, T + LM_DECODE_STEPS, 0)
+        out.update(seq=T, calls=len(times), p50_ms=p50 * 1e3, tokens_per_s=B * T / p50)
+    else:
+        prompt = _lm_tokens(cfg, B, LM_PROMPT, seed, dev)
+        prefill, decode = make_prefill_step(cfg, max_len=T), make_decode_step(cfg)
+
+        def run():
+            t0 = time.perf_counter()
+            last, cache = prefill(model, prompt)
+            tok = greedy(last)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            toks, times = [tok], []
+            for i in range(LM_DECODE_STEPS):
+                t0 = time.perf_counter()
+                tok, cache = decode(model, cache, tok[:, None], LM_PROMPT + i)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                toks.append(tok)
+            return torch.stack(toks, 1), times, prefill_s
+
+        (gen, times, prefill_s), counts = counted(run)
+        if tuple(gen.shape) != (B, LM_DECODE_STEPS + 1) or not bool(
+                ((gen >= 0) & (gen < V)).all()):
+            fail(f"lm {arch} {row}: generated {tuple(gen.shape)} or out of range")
+        p50 = float(np.median(times[1:]))
+        bound = _lm_bound(cfg, B, 1, T, T)
+        valid = _lm_bound(cfg, B, 1, T, LM_PROMPT + LM_DECODE_STEPS // 2)
+        out.update(cache_T=T, prompt=LM_PROMPT, prompt_prefill_s=prefill_s,
+                   steps=LM_DECODE_STEPS, p50_ms=p50 * 1e3, tokens_per_s=B / p50,
+                   bound_valid_prefix_ms=valid["ms"])
+    require(counts, {}, f"lm {arch} {row}")
+    out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               bound_ms=bound["ms"], bound_by=bound["by"], bound_tflop=bound["ops"] / 1e12,
+               bound_gb=bound["bytes"] / 1e9, reduced=cuts, launches=counts, device=smi)
+    return out
+
+
+def _gnn_data(shape, seed: int, dev) -> tuple[dict, dict, list]:
+    """(batch on ``dev``, host facts, cuts) for one ``GNN_SHAPES`` entry:
+    random features, edges and labels from ``seed``.  full: the shape's
+    nodes and uniform random edges; batched: ``n_graphs`` graphs of
+    ``n_nodes`` / ``n_edges`` packed with offset node ids (one node id
+    space, as ``launch/cells.py`` sizes it); sampled: ``random_graph`` over
+    the shape's nodes at its average degree rounded to an integer (it
+    takes an integer degree), its CSR built once, ``sample_subgraph`` from
+    ``batch_nodes`` seeds at the fanout,
+    the features gathered from a full random table, the label mask on the
+    seeds."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import sampler
+
+    C = configs.get("gcn-cora").num_classes
+    g = torch.Generator(device=dev).manual_seed(seed)
+    facts, cuts = {}, []
+    if shape.kind == "sampled":
+        rng = np.random.default_rng(seed)
+        deg = round(shape.n_edges / shape.n_nodes)
+        t0 = time.perf_counter()
+        graph = sampler.random_graph(shape.n_nodes, deg, seed=seed)
+        facts["csr_seconds"] = time.perf_counter() - t0
+        seeds = rng.choice(shape.n_nodes, size=shape.batch_nodes, replace=False)
+        t0 = time.perf_counter()
+        sub = sampler.sample_subgraph(graph, seeds, shape.fanout, rng=rng)
+        facts["sample_seconds"] = time.perf_counter() - t0
+        facts.update(host_graph_edges=int(len(graph.indices)),
+                     valid_nodes=int(sub["node_valid"].sum()),
+                     valid_edges=int((sub["edges"][0] >= 0).sum()))
+        cuts.append(f"host graph random_graph({shape.n_nodes}, {deg}): "
+                    f"{len(graph.indices)} edges, not {shape.n_edges} (the average "
+                    "degree rounded to an integer)")
+        del graph
+        table = torch.randn((shape.n_nodes, shape.d_feat), generator=g, device=dev)
+        x = table[torch.as_tensor(sub["node_index"], device=dev).long()]
+        del table
+        n = sub["num_nodes"]
+        edges = torch.as_tensor(sub["edges"], device=dev)
+        mask = torch.zeros(n, device=dev)
+        mask[torch.as_tensor(sub["seed_local"], device=dev).long()] = 1.0
+        batch = {"x": x, "edges": edges, "label_mask": mask}
+    else:
+        graphs = shape.n_graphs if shape.kind == "batched" else 1
+        n, e = shape.n_nodes * graphs, shape.n_edges
+        local = torch.randint(0, shape.n_nodes, (2, graphs, e), generator=g, device=dev,
+                              dtype=torch.int32)
+        offsets = torch.arange(graphs, device=dev, dtype=torch.int32)[None, :, None]
+        batch = {"x": torch.randn((n, shape.d_feat), generator=g, device=dev),
+                 "edges": (local + offsets * shape.n_nodes).reshape(2, graphs * e)}
+    batch["labels"] = torch.randint(0, C, (n,), generator=g, device=dev, dtype=torch.int32)
+    return batch, facts, cuts
+
+
+def _gcn_bound(cfg, n: int, E: int, d: int, train: bool) -> dict:
+    """The least time of one GCN call: each layer's transform (2·n·d_in·
+    d_out) and its messages (a scale and an add of d_out per edge) at the
+    f32 peak (TF32 off), three times over for a train step (forward, and
+    the backward's two products); bytes the features, the edges (int32)
+    and the logits — for a train step the labels and the parameters, their
+    gradients and AdamW's two moments (each read and written) instead of
+    the logits."""
+    dims = (d,) + (cfg.d_hidden,) * (cfg.num_layers - 1) + (cfg.num_classes,)
+    flops = sum(2 * n * a * b + 2 * E * b for a, b in zip(dims, dims[1:]))
+    P = sum(a * b + b for a, b in zip(dims, dims[1:]))
+    nbytes = 4 * n * d + 8 * E + (4 * n + 4 * P * 7 if train else 4 * n * cfg.num_classes)
+    return _bound(flops * (3 if train else 1), "f32", nbytes)
+
+
+def _gnn_checks(shape, cfg, model, batch) -> dict:
+    """full_graph_sm: the serve step's logits on the card against the CPU
+    (GNN_RTOL / GNN_ATOL) and GNN_CPU_STEPS train steps' losses (rtol
+    GNN_RTOL); ogb_products: the f32 forward against the f64 forward on the
+    card (GNN_F64_RTOL)."""
+    import torch
+
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.train_step import make_serve_step, make_train_step
+
+    serve = make_serve_step(cfg, "gnn")
+    out = {}
+    if shape.name == "full_graph_sm":
+        cpu_p = tree_lib.tree_map(lambda t: t.cpu(), model.tree())
+        cpu_b = {k: v.cpu() for k, v in batch.items()}
+        err, ok = close_matmul(serve(model, batch).cpu(), serve(cpu_p, cpu_b),
+                               rtol=GNN_RTOL, atol=GNN_ATOL)
+        opt = opt_lib.adamw(GNN_LR)
+        step = make_train_step(cfg, "gnn", opt)
+        pg, pc = model.tree(), cpu_p
+        sg, sc = opt.init(pg), opt.init(pc)
+        losses = []
+        for _ in range(GNN_CPU_STEPS):
+            pg, sg, mg = step(pg, sg, batch)
+            pc, sc, mc = step(pc, sc, cpu_b)
+            losses.append((float(mg["loss"]), float(mc["loss"])))
+        loss_ok = all(abs(a - b) <= GNN_RTOL * abs(b) for a, b in losses)
+        out = {"card_vs_cpu": {"max_abs_err": err, "ok": ok, "losses": losses,
+                               "losses_ok": loss_ok, "rtol": GNN_RTOL, "atol": GNN_ATOL}}
+        ok = ok and loss_ok
+    elif shape.name == "ogb_products":
+        p64 = tree_lib.tree_map(lambda t: t.double(), model.tree())
+        with torch.inference_mode():
+            ref = gnn.gcn_forward(p64, batch["x"].double(), batch["edges"], cfg)
+            got = serve(model, batch).double()
+        diff = (got - ref).abs()
+        rms = float(ref.square().mean().sqrt())
+        ok = bool((diff <= GNN_F64_RTOL * (ref.abs() + rms)).all())
+        out = {"f32_vs_f64": {"max_abs_err": float(diff.max()), "f64_rms": rms,
+                              "max_rel_err": float((diff / ref.abs().clamp_min(rms)).max()),
+                              "ok": ok, "rtol": GNN_F64_RTOL}}
+        del p64, ref, got, diff
+    else:
+        return out
+    if not ok:
+        fail(f"gnn {shape.name} checks: {json.dumps(out)}")
+    return out
+
+
+def _gnn_row(shape, seed: int, smi: str) -> dict:
+    """One GNN shape with ``gcn-cora``'s CONFIG: a counted window of
+    GNN_SERVE_REPS serve steps after a warm-up and GNN_TRAIN_STEPS AdamW
+    steps, which must launch no kernel, then the shape's checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_serve_step, make_train_step
+
+    dev = torch.device(DEVICE)
+    cfg = configs.get("gcn-cora")
+    t0 = time.perf_counter()
+    batch, facts, cuts = _gnn_data(shape, seed, dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    n, E = batch["x"].shape[0], batch["edges"].shape[1]
+    model = gnn.GCNModel.build(cfg, shape.d_feat, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(seed))
+    serve = make_serve_step(cfg, "gnn")
+    opt = opt_lib.adamw(GNN_LR)
+    step = make_train_step(cfg, "gnn", opt)
+    _peak_reset()
+
+    def run():
+        logits, serve_times = _timed_calls(lambda: serve(model, batch), GNN_SERVE_REPS,
+                                           warmup=1)
+        params = model.tree()
+        state = opt.init(params)
+        losses, times = [], []
+        for _ in range(GNN_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+        return logits, serve_times, losses, times
+
+    (logits, serve_times, losses, times), counts = counted(run)
+    require(counts, {}, f"gnn {shape.name}")
+    if tuple(logits.shape) != (n, cfg.num_classes) or not bool(torch.isfinite(logits).all()):
+        fail(f"gnn {shape.name}: logits {tuple(logits.shape)} or not finite")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"gnn {shape.name}: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    serve_p50, train_p50 = float(np.median(serve_times)), float(np.median(times[1:]))
+    sb, tb = (_gcn_bound(cfg, n, E, shape.d_feat, train) for train in (False, True))
+    out = {"shape": shape.name, "kind": shape.kind, "nodes": n, "edges": E,
+           "d_feat": shape.d_feat, "data_seconds": data_s, **facts,
+           "serve_p50_ms": serve_p50 * 1e3, "nodes_per_s": n / serve_p50,
+           "serve_bound_ms": sb["ms"], "serve_bound_by": sb["by"],
+           "train_p50_ms": train_p50 * 1e3, "train_nodes_per_s": n / train_p50,
+           "train_bound_ms": tb["ms"], "train_bound_by": tb["by"],
+           "loss_first": losses[0], "loss_after_10": losses[-1], "peak_gb": peak,
+           "reduced": cuts, "launches": counts, "device": smi}
+    del logits
+    window, counts = counted(lambda: _gnn_checks(shape, cfg, model, batch))
+    require(counts, {}, f"gnn {shape.name} checks")
+    out.update(window)
+    return out
+
+
+def phase_models(seed: int, smi: str) -> tuple[list[dict], list[dict]]:
+    """Phase 12: smollm-135m and gemma-2b serving (``LM_ROWS``, with their
+    checks) and the GCN on every ``GNN_SHAPES`` entry; every window must
+    launch no kernel.  Returns (lm lines, gnn lines)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import LMModel
+
+    t0 = time.perf_counter()
+    dev = torch.device(DEVICE)
+    lm, gnn_rows = [], []
+    for arch in LM_CHECK:
+        model = LMModel.build(configs.get(arch), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(seed))
+        check, counts = counted(lambda: _lm_checks(arch, model, seed, smi))
+        require(counts, {}, f"lm {arch} checks")
+        check["launches"] = counts
+        lm.append(check)
+        log("lm " + json.dumps(check))
+        for spec in LM_ROWS:
+            if spec[0] == arch:
+                lm.append(_lm_row(model, spec, seed, smi))
+                log("lm " + json.dumps(lm[-1]))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for shape in configs.base.GNN_SHAPES:
+        gnn_rows.append(_gnn_row(shape, seed, smi))
+        log("gnn " + json.dumps(gnn_rows[-1]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 12 seconds {time.perf_counter() - t0:.3f}")
+    return lm, gnn_rows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3881,6 +4338,9 @@ def main(argv=None) -> int:
     del corpus, Qt
     recsys = phase_recsys(args.seed, sweeps)
     _, training_windows = phase_training(sweeps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_models(args.seed, env["nvidia_smi"])
     rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],

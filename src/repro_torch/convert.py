@@ -16,8 +16,11 @@ both packages can be held to one index:
 * ``attrs_from_jax_state`` — ``AttributeStore`` (columns and vocabularies);
 * ``quant_store_from_jax`` — ``QuantStore`` (the same codes and scales;
   the squared norms are recomputed, as every store derives them);
-* ``recsys_params_from_jax`` — ``RecsysModel`` from a JAX recsys params
-  tree (``.tree()`` gives the plain tree the train step takes);
+* ``params_from_jax`` — the port's tree of tensors from any JAX params
+  tree and its declarations; ``recsys_params_from_jax``,
+  ``gcn_params_from_jax`` and ``lm_params_from_jax`` wrap it in
+  ``RecsysModel``, ``GCNModel`` and ``LMModel`` (``.tree()`` gives the
+  plain tree the train step takes);
 * ``opt_state_from_jax`` / ``opt_state_to_jax`` — optimizer state both
   ways (``AdamWState``, ``AdafactorState``, the sgd tuple): JAX's ``step``
   is an int32 scalar array, the port's a host int.
@@ -37,8 +40,10 @@ from repro_torch.core.index import ShardedIndex
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.search import IndexConfig, InfinityIndex
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import params as params_lib
 from repro_torch.models import recsys as recsys_lib
+from repro_torch.models import transformer as lm_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree as tree_lib
 
@@ -150,13 +155,13 @@ def quant_store_from_jax(arrays: Mapping[str, Any], *,
     return quant_lib.QuantStore.from_snapshot(arrays, {}, device=device)
 
 
-def recsys_params_from_jax(params_np: Mapping[str, Any], cfg, *,
-                           device: DeviceLike = None) -> recsys_lib.RecsysModel:
-    """A ``RecsysModel`` for ``cfg`` from the JAX params tree (dicts and
-    lists of numpy arrays, as ``init_params`` of ``recsys_decls`` gives
-    them).  The port keeps JAX's layouts (``x @ w``, w (fan-in,
-    fan-out)), so nothing is transposed; each leaf must have its
-    declaration's shape."""
+def params_from_jax(params_np: Mapping[str, Any], decls, *,
+                    device: DeviceLike = None) -> dict:
+    """The port's tree of tensors on ``device`` (default CUDA) from a JAX
+    params tree (dicts and lists of numpy arrays, as ``init_params`` of
+    ``decls`` gives them).  The port keeps JAX's layouts (``x @ w``, w
+    (fan-in, fan-out); stacked (L, ...) layers), so nothing is transposed;
+    each leaf must have its declaration's shape, and takes its dtype."""
     dev = resolve_device(device)
 
     def take(path: str, decl) -> torch.Tensor:
@@ -166,10 +171,33 @@ def recsys_params_from_jax(params_np: Mapping[str, Any], cfg, *,
         arr = np.asarray(node, np.float32)
         if arr.shape != decl.shape:
             raise ValueError(f"{path}: shape {arr.shape}, declared {decl.shape}")
-        return torch.tensor(arr, device=dev)
+        return torch.tensor(arr, device=dev).to(getattr(torch, decl.dtype))
 
-    tree = params_lib.map_decls(take, recsys_lib.recsys_decls(cfg))
-    return recsys_lib.RecsysModel(cfg, tree)
+    return params_lib.map_decls(take, decls)
+
+
+def recsys_params_from_jax(params_np: Mapping[str, Any], cfg, *,
+                           device: DeviceLike = None) -> recsys_lib.RecsysModel:
+    """A ``RecsysModel`` for ``cfg`` from the JAX recsys params tree."""
+    return recsys_lib.RecsysModel(
+        cfg, params_from_jax(params_np, recsys_lib.recsys_decls(cfg), device=device))
+
+
+def gcn_params_from_jax(params_np: Mapping[str, Any], cfg, *,
+                        device: DeviceLike = None) -> gnn_lib.GCNModel:
+    """A ``GCNModel`` for ``cfg`` from the JAX GCN params tree; the input
+    width is its first layer's."""
+    d_feat = np.shape(params_np["layers"][0]["w"])[0]
+    return gnn_lib.GCNModel(
+        cfg, params_from_jax(params_np, gnn_lib.gcn_decls(cfg, d_feat), device=device))
+
+
+def lm_params_from_jax(params_np: Mapping[str, Any], cfg, *,
+                       device: DeviceLike = None) -> lm_lib.LMModel:
+    """An ``LMModel`` for ``cfg`` from the JAX LM params tree (``lm_decls``:
+    wq (L, d, H, Dh), wo (L, H, Dh, d), ...)."""
+    return lm_lib.LMModel(
+        cfg, params_from_jax(params_np, lm_lib.lm_decls(cfg), device=device))
 
 
 def _tensors(tree_np, dev: torch.device):

@@ -41,14 +41,15 @@ import threading
 import types
 from typing import Optional
 
-# H100 SXM published peaks (dense): f32 on the CUDA cores, int8 on the
-# tensor cores, HBM bandwidth
+# H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 and int8 on
+# the tensor cores, HBM bandwidth
 F32_FLOPS = 67e12  # an FMA counts as two flops
 F32_INSTR = F32_FLOPS / 2  # f32 lane instructions per second
+BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
 HBM_BW = 3.35e12
 #: operation kind -> peak rate (per second)
-RATES = {"f32": F32_FLOPS, "f32_instr": F32_INSTR, "int8": INT8_OPS}
+RATES = {"f32": F32_FLOPS, "f32_instr": F32_INSTR, "bf16": BF16_FLOPS, "int8": INT8_OPS}
 
 
 @dataclasses.dataclass

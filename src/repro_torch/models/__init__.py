@@ -1,3 +1,3 @@
-"""Model substrate of the port: parameter declarations (``params``) and the
-recsys family (``recsys``).  The LM and GNN families wait for their
-slices."""
+"""Model substrate of the port: parameter declarations (``params``), the
+recsys family (``recsys``), the GCN (``gnn``, ``sampler``) and the dense
+LM transformer (``layers``, ``attention``, ``transformer``)."""

@@ -3,11 +3,12 @@
 Models declare their parameters as a tree (dicts and lists) of ``Param``
 records: shape, logical axis names and initializer.  ``init_params``
 materialises the tree with an explicit ``torch.Generator`` on the device;
-``param_count`` / ``param_bytes`` read the declarations alone.  The
+``param_count`` / ``param_bytes`` read the declarations alone;
+``TreeModule`` holds a materialised tree as an ``nn.Module``.  The
 abstract (dry-run) and sharding views wait for the port's ``dist/``.
 
 The two frameworks draw different numbers from one seed: parity tests
-initialise in JAX and load the weights (``convert.recsys_params_from_jax``).
+initialise in JAX and load the weights (``convert.params_from_jax``).
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ import dataclasses
 import math
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
+from torch import nn
 
 PyTree = Any
 
@@ -101,4 +102,43 @@ def param_count(decls: PyTree) -> int:
 
 
 def param_bytes(decls: PyTree) -> int:
-    return sum(math.prod(p.shape) * np.dtype(p.dtype).itemsize for _, p in leaves(decls))
+    return sum(math.prod(p.shape) * getattr(torch, p.dtype).itemsize
+               for _, p in leaves(decls))
+
+
+class TreeModule(nn.Module):
+    """A parameter tree (dicts of tensors, dicts and lists of dicts) as an
+    ``nn.Module``: a dict's tensors are parameters under their keys, its
+    dicts and lists submodules, so ``named_parameters`` gives the tree's
+    dotted paths (``mlp.0.w``, ``dense_blocks.attn.wq``) and
+    ``module["mlp"][0]["w"]`` and ``keys()`` read as the plain tree's
+    do."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(value))
+            elif isinstance(value, dict):
+                self.add_module(name, TreeModule(value))
+            else:
+                self.add_module(name, nn.ModuleList(TreeModule(v) for v in value))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def keys(self) -> list[str]:
+        return ([name for name, _ in self.named_children()]
+                + [name for name, _ in self.named_parameters(recurse=False)])
+
+    def tree(self) -> dict:
+        """The parameters as a plain tree (dicts and lists of tensors that
+        share this module's storage, detached): what ``make_train_step``
+        and the optimizers take."""
+        out: dict = {}
+        for name, child in self.named_children():
+            out[name] = (child.tree() if isinstance(child, TreeModule)
+                         else [layer.tree() for layer in child])
+        for name, value in self.named_parameters(recurse=False):
+            out[name] = value.detach()
+        return out

@@ -28,7 +28,6 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -118,37 +117,16 @@ def recsys_decls(cfg: RecsysConfig) -> dict:
     return decls
 
 
-class RecsysModel(nn.Module):
+class RecsysModel(params_lib.TreeModule):
     """The parameters of one recsys config under their declaration names
     (``table``, ``linear``, ``bias``, ``mlp.<i>.w``, ``cin.<i>.w``,
     ``attn.<i>.wq``, ...) and JAX's shapes, so the functions below read it
     as they read a plain tree (``model["mlp"][0]["w"]``); ``model(ids)`` is
-    ``recsys_forward``."""
+    ``recsys_forward``; ``.tree()`` gives the plain tree."""
 
     def __init__(self, cfg: RecsysConfig, tree: dict):
-        super().__init__()
+        super().__init__(tree)
         self.cfg = cfg
-        for name, value in tree.items():
-            if isinstance(value, torch.Tensor):
-                self.register_parameter(name, nn.Parameter(value))
-            else:
-                setattr(self, name, nn.ModuleList(
-                    nn.ParameterDict({k: nn.Parameter(v) for k, v in layer.items()})
-                    for layer in value))
-
-    def __getitem__(self, name: str):
-        return getattr(self, name)
-
-    def tree(self) -> dict:
-        """The parameters as a plain tree (dicts and lists of tensors that
-        share this module's storage, detached): what ``make_train_step``
-        and the optimizers take."""
-        out: dict = {}
-        for name, value in self.named_children():
-            out[name] = [{k: v.detach() for k, v in layer.items()} for layer in value]
-        for name, value in self.named_parameters(recurse=False):
-            out[name] = value.detach()
-        return out
 
     @classmethod
     def build(cls, cfg: RecsysConfig, *, device: DeviceLike = None,

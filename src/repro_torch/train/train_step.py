@@ -1,17 +1,20 @@
 """Train and serve step factories (port of ``repro/train/train_step.py``).
 
-``make_train_step(cfg, "recsys", opt)`` returns ``train_step(params,
-opt_state, batch) -> (params, opt_state, metrics)``: the loss and its
-gradient over every leaf of the parameter tree (``torch.autograd.grad``),
-optional microbatch accumulation and int8 gradient compression, then
-``opt.update``.  ``make_serve_step(cfg, "recsys")`` scores a batch of ids
-(the ``serve_p99`` / ``serve_bulk`` shapes; the xDeepFM CIN in chunks of
-``models.recsys.CIN_CHUNK`` rows); ``make_retrieval_step(cfg, k=)`` embeds the
-query ids and returns the top-k candidates (``retrieval_cand``).  Serve
-steps take ``(params, batch)``, with ``params`` a ``models.recsys.
-RecsysModel`` or the same tree as a dict, and run under
-``torch.inference_mode``.  The ``lm`` and ``gnn`` families wait for their
-slices (ROADMAP Queue 1).
+``make_train_step(cfg, family, opt)`` (``recsys`` or ``gnn``) returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+the loss and its gradient over every leaf of the parameter tree
+(``torch.autograd.grad``), optional microbatch accumulation and int8
+gradient compression, then ``opt.update``.  ``make_serve_step(cfg,
+"recsys")`` scores a batch of ids (the ``serve_p99`` / ``serve_bulk``
+shapes; the xDeepFM CIN in chunks of ``models.recsys.CIN_CHUNK`` rows);
+``make_serve_step(cfg, "gnn")`` gives the GCN's logits over a graph;
+``make_retrieval_step(cfg, k=)`` embeds the query ids and returns the
+top-k candidates (``retrieval_cand``); ``make_prefill_step`` /
+``make_decode_step`` serve the dense LMs (prefill, then greedy decode
+through the cache).  Serve steps take ``(params, ...)``, with ``params`` a
+model (``RecsysModel``, ``GCNModel``, ``LMModel``) or the same tree as a
+dict, and run under ``torch.inference_mode``.  LM training waits for its
+slice (``UNPORTED_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.dist import compression as comp_lib
+from repro_torch.models.gnn import gcn_forward, gcn_loss
 from repro_torch.models.recsys import (
     recsys_forward, recsys_loss, retrieval_score, user_embedding,
 )
+from repro_torch.models.transformer import greedy, lm_decode_step, lm_prefill
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree as tree_lib
 
@@ -30,14 +35,15 @@ Tree = Any
 
 #: the slice that brings each family the port does not train yet
 UNPORTED_FAMILIES = {
-    "lm": "the LM stack (ROADMAP Queue 1, item 3)",
-    "gnn": "the GNN (ROADMAP Queue 1, item 2)",
+    "lm": "LM training (ROADMAP Queue 1, item 3c)",
 }
 
 
 def _loss_fn_for(family: str):
     if family == "recsys":
         return recsys_loss
+    if family == "gnn":
+        return gcn_loss
     if family in UNPORTED_FAMILIES:
         raise KeyError(f"family {family!r} is not ported yet: it comes with "
                        f"{UNPORTED_FAMILIES[family]}")
@@ -113,14 +119,19 @@ def make_train_step(
 
 
 def make_serve_step(cfg, family: str) -> Callable:
-    """Forward-only scoring step: ``serve(params, {"ids": (B, F)})`` ->
-    click probabilities (B,)."""
-    if family != "recsys":
-        raise KeyError(f"no serve step for family {family!r} in the port yet")
-    def serve(params, batch):
-        with torch.inference_mode():
-            return torch.sigmoid(recsys_forward(params, batch["ids"], cfg))
-
+    """Forward-only scoring step: recsys ``serve(params, {"ids": (B, F)})``
+    -> click probabilities (B,); gnn ``serve(params, {"x": (n, d),
+    "edges": (2, E)})`` -> logits (n, num_classes)."""
+    if family == "recsys":
+        def serve(params, batch):
+            with torch.inference_mode():
+                return torch.sigmoid(recsys_forward(params, batch["ids"], cfg))
+    elif family == "gnn":
+        def serve(params, batch):
+            with torch.inference_mode():
+                return gcn_forward(params, batch["x"], batch["edges"], cfg)
+    else:
+        raise KeyError(f"no serve step for family {family!r}")
     return serve
 
 
@@ -134,3 +145,27 @@ def make_retrieval_step(cfg, *, k: int = 100) -> Callable:
             return retrieval_score(u, batch["candidates"], k=k)
 
     return retrieve
+
+
+def make_decode_step(cfg) -> Callable:
+    """LM decode: ``decode(params, cache, tokens (B, 1), pos) ->
+    (next tokens (B,) int32, cache)``, one greedy token for every sequence
+    in the batch, the cache written in place."""
+
+    def decode(params, cache, tokens, pos):
+        with torch.inference_mode():
+            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg)
+            return greedy(logits), cache
+
+    return decode
+
+
+def make_prefill_step(cfg, *, max_len: Optional[int] = None) -> Callable:
+    """LM prefill: ``prefill(params, tokens (B, S)) -> (last logits (B, 1,
+    V), cache padded to max_len)``."""
+
+    def prefill(params, tokens):
+        with torch.inference_mode():
+            return lm_prefill(params, tokens, cfg, max_len=max_len)
+
+    return prefill

@@ -1147,3 +1147,114 @@ def test_checkpoint_restores_on_the_card(cuda, tmp_path):
     (p, s), step = checkpoint.restore(str(tmp_path), (params, state))
     assert step == 4 and s.step == 0 and p["table"].is_cuda
     assert torch.equal(p["table"], params["table"])
+
+
+# ---------------------------------------------------------------------------
+# the GCN and dense-LM serving on the card: no kernel lies on either path,
+# so every launch counter stays 0
+# ---------------------------------------------------------------------------
+
+def _gcn_graph(seed, n=300, d=24, e=1500, classes=7):
+    g = np.random.default_rng(seed)
+    edges = np.concatenate([g.integers(0, n, size=(2, e)), np.full((2, 13), -1)], axis=1)
+    return {"x": g.normal(size=(n, d)).astype(np.float32),
+            "edges": edges.astype(np.int32),
+            "labels": g.integers(0, classes, size=n).astype(np.int32),
+            "label_mask": (g.random(n) < 0.5).astype(np.float32)}
+
+
+@pytest.mark.parametrize("mode", [{}, {"grad_compression": "int8"}])
+def test_gcn_on_card_matches_cpu(cuda, mode):
+    """GCN CONFIG on a padded random graph: the serve step's logits rtol /
+    atol 1e-5 and three AdamW(1e-2) steps' losses rtol 1e-5 against the CPU
+    (``index_add`` sums with atomics on the card); no kernel launched."""
+    from repro_torch import configs
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer, tree
+    from repro_torch.train.train_step import make_serve_step, make_train_step
+
+    cfg = configs.get("gcn-cora")
+    model = gnn.GCNModel.build(cfg, 24, device=cuda)
+    p_gpu = model.tree()
+    p_cpu = tree.tree_map(lambda t: t.cpu(), p_gpu)
+    b = _gcn_graph(2)
+    gpu_b = {k: torch.as_tensor(v, device=cuda) for k, v in b.items()}
+    cpu_b = {k: torch.as_tensor(v) for k, v in b.items()}
+    _build.reset_launches()
+    serve = make_serve_step(cfg, "gnn")
+    np.testing.assert_allclose(serve(p_gpu, gpu_b).cpu().numpy(),
+                               serve(p_cpu, cpu_b).numpy(), rtol=1e-5, atol=1e-5)
+    opt = optimizer.adamw(1e-2)
+    s_gpu, s_cpu = opt.init(p_gpu), opt.init(p_cpu)
+    step = make_train_step(cfg, "gnn", opt, **mode)
+    for _ in range(3):
+        p_gpu, s_gpu, m_gpu = step(p_gpu, s_gpu, gpu_b)
+        p_cpu, s_cpu, m_cpu = step(p_cpu, s_cpu, cpu_b)
+        assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma-2b", "deepseek-coder-33b"])
+def test_lm_decode_on_card_equals_forward(cuda, arch):
+    """REDUCED (f32), TF32 off: every position's logits through the cache
+    equal the full forward's on the card, rtol / atol 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get_reduced(arch)
+    model = transformer.LMModel.build(cfg, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)),
+                           device=cuda)
+    with torch.inference_mode():
+        full = model(toks)
+        cache = transformer.init_cache(cfg, 2, 16, device=cuda)
+        steps = [transformer.lm_decode_step(model, cache, toks[:, t:t + 1], t, cfg)[0][:, 0]
+                 for t in range(16)]
+    np.testing.assert_allclose(torch.stack(steps, 1).cpu().numpy(), full.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma-2b", "deepseek-coder-33b"])
+def test_lm_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """REDUCED (f32), the same weights and prompt: forward, prefill (its
+    cache too), 4 decode steps fed the same tokens (their logits and the
+    cache) and the chunked path (CHUNK_THRESHOLD / CHUNK_SIZE 16 / 8) on
+    the card against the CPU, rtol / atol 1e-5; no kernel launched."""
+    from repro_torch import configs
+    from repro_torch.models import attention, transformer
+    from repro_torch.train.train_step import make_prefill_step
+
+    cfg = configs.get_reduced(arch)
+    gpu = transformer.LMModel.build(cfg, device=cuda)
+    cpu = transformer.LMModel(cfg, _cpu_tree(gpu.tree()))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 16))
+    _build.reset_launches()
+    prefill = make_prefill_step(cfg, max_len=16)
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        t = torch.as_tensor(toks, device=dev)
+        with torch.inference_mode():
+            logits = model(t[:, :12])
+            last, cache = prefill(model, t[:, :12])
+            steps = [transformer.lm_decode_step(model, cache, t[:, i:i + 1], i, cfg)[0]
+                     for i in range(12, 16)]
+        outs.append((logits, last, torch.cat(steps, 1), cache["dense"]["k"],
+                     cache["dense"]["v"]))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 16)
+    monkeypatch.setattr(attention, "CHUNK_SIZE", 8)
+    long = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32))
+    with torch.inference_mode():
+        a = gpu(torch.as_tensor(long, device=cuda))
+        b = cpu(torch.as_tensor(long))
+    np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+
+
+def _cpu_tree(tree):
+    from repro_torch.train import tree as tree_lib
+
+    return tree_lib.tree_map(lambda t: t.cpu(), tree)

@@ -243,4 +243,4 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.recsys_params_from_jax({}, cfg)
     with pytest.raises(KeyError):
-        make_serve_step(cfg, "gnn")
+        make_serve_step(cfg, "lm")

@@ -203,7 +203,7 @@ def test_train_step_refuses_inference_params_and_unported_families():
     b = {k: torch.as_tensor(v) for k, v in jrecsys_batch(0, 8, tcfg.vocabs).items()}
     with pytest.raises(ValueError, match="inference_mode"):
         step(frozen, opt.init(tp), b)
-    for family, item in (("lm", "item 3"), ("gnn", "item 2")):
+    for family, item in (("lm", r"LM training \(ROADMAP Queue 1, item 3c\)"),):
         with pytest.raises(KeyError, match=item):
             tsteps.make_train_step(tcfg, family, opt)
     with pytest.raises(ValueError, match="grad_compression"):
@@ -276,7 +276,7 @@ def test_launcher_cli_trains_checkpoints_and_resumes(tmp_path):
     assert again.stdout.splitlines()[0] == "resumed from step 10"
     assert again.stdout.splitlines()[-2].startswith("step 11: loss=")
     lm = _launch("--steps", "1", "--device", "cpu", cwd=tmp_path)
-    assert lm.returncode != 0 and "LM stack" in lm.stderr
+    assert lm.returncode != 0 and "LM training" in lm.stderr
 
 
 def test_launcher_build_matches_the_jax_loop_shape():
@@ -296,7 +296,7 @@ def test_launcher_build_matches_the_jax_loop_shape():
         tparams_, tstate, m = step(tparams_, tstate, tb(t % 2))
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    with pytest.raises(KeyError, match="LM stack"):
+    with pytest.raises(KeyError, match="LM training"):
         ttrain.build("smollm-135m", device="cpu")
 
 
