@@ -215,6 +215,33 @@ Phases, in order; any failure exits non-zero:
    against its f64 forward on the card (1e-4).  Every line names the card
    and its power limit.
 
+13. MoE and MLA serving at published widths, and LM training
+   (``phase_moe``, after phase 12; no kernel lies on these paths either, so
+   every counter must read 0 in every window).  deepseek-v3-671b and
+   qwen3-moe-235b-a22b keep their widths and are cut in depth
+   (``MOE_DEPTH``: deepseek-v3 to its first dense layer and one MoE layer
+   with the MTP module in the tree, 58.5 GB f32; qwen3-moe to 2 of 94
+   layers, 24.9 GB), random weights from ``--seed``, one model on the card
+   at a time.  First each arch's ``REDUCED`` config, card against CPU
+   (forward, prefill and decode steps, naive and absorbed, LM_RTOL /
+   LM_ATOL; 3 AdamW(3e-4) train steps, losses rtol 1e-5); then, at full
+   width with f32 activations, teacher forcing through the cache (naive
+   and absorbed), prefill against the forward, absorbed against naive
+   logits and the MoE dispatch against ``moe_ffn_dense`` on the MoE layer
+   over 64 tokens, each rtol / atol 1e-4; then ``MOE_ROWS``: deepseek-v3
+   prefill 1 x 4 096, absorbed decode at batch 32 over a 32 768-position
+   cache (its 4 096-token prompt prefilled one sequence at a time), naive
+   and absorbed decode side by side at 4 x 4 096 (3 072-token prompt);
+   qwen3-moe prefill 4 x 4 096 and decode 32 x 32 768.  Each ``lm`` line
+   prints p50 ms, tokens/s, peak memory, the experts the routing reached,
+   the bound (MLA's products as run; MoE flops for k routed experts and
+   the shared one a token, bytes for the experts reached) and its cuts.
+   Then smollm-135m at published widths and full depth through
+   ``launch.train.build(reduced=False)`` on ``train_4k`` cut to batch 8
+   (``LM_TRAIN``; each layer checkpointed): 10 AdamW(3e-4) steps (p50 of
+   the nine after the first, tokens/s, peak memory, the losses finite)
+   and one ``microbatches=2`` step.
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
 minmax, the bench-config q=2 build, the infinity retrieval and the
@@ -3914,36 +3941,99 @@ def _lm_tokens(cfg, batch: int, seq: int, seed: int, dev):
     return torch.as_tensor(toks, device=dev)
 
 
-def _lm_layer_params(cfg) -> int:
-    """Parameters of the layers' matmuls (every token multiplies each once)."""
+def _lm_token_params(cfg, absorb: bool = False) -> int:
+    """Weights one token multiplies through the layers' matmuls: GQA's or
+    MLA's projections (absorbed decode: W_uk and W_uv too), the dense FFN
+    or the MoE layer's router, k routed experts and the shared ones."""
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return cfg.num_layers * (2 * d * H * Dh + 2 * d * KV * Dh + 3 * d * cfg.d_ff)
+    if cfg.attention == "mla":
+        m = cfg.mla
+        attn = (d * m.q_lora_rank + m.q_lora_rank * H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                + d * (m.kv_lora_rank + m.qk_rope_head_dim) + H * m.v_head_dim * d)
+        if absorb:
+            attn += H * m.kv_lora_rank * (m.qk_nope_head_dim + m.v_head_dim)
+    else:
+        attn = 2 * d * H * Dh + 2 * d * KV * Dh
+    moe = (3 * d * cfg.moe_d_ff * (cfg.num_experts_per_tok + cfg.num_shared_experts)
+           + d * cfg.num_experts)
+    return (cfg.num_layers * attn + cfg.num_dense_layers * 3 * d * cfg.d_ff
+            + cfg.num_moe_layers * moe)
+
+
+def _lm_pair_flops(cfg, absorb: bool = False) -> int:
+    """Flops of one (query, key) pair in one layer: the scores and the
+    value product (MLA absorbed: against the latent)."""
+    H = cfg.num_heads
+    if cfg.attention != "mla":
+        return 4 * H * cfg.head_dim
+    m = cfg.mla
+    if absorb:
+        return 2 * H * (2 * m.kv_lora_rank + m.qk_rope_head_dim)
+    return 2 * H * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+
+
+def _lm_expand_flops(cfg, absorb: bool = False) -> int:
+    """Flops of expanding one key position's K and V from MLA's latent in
+    one layer (the naive and chunked branches; 0 for GQA and absorbed)."""
+    if cfg.attention != "mla" or absorb:
+        return 0
+    m = cfg.mla
+    return 2 * m.kv_lora_rank * cfg.num_heads * (m.qk_nope_head_dim + m.v_head_dim)
 
 
 def _lm_cache_bytes(cfg, batch: int, T: int) -> int:
-    return (2 * cfg.num_layers * batch * T * cfg.num_kv_heads * cfg.head_dim
-            * cfg.act_dtype().itemsize)
+    per = ((cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim) if cfg.attention == "mla"
+           else 2 * cfg.num_kv_heads * cfg.head_dim)
+    return cfg.num_layers * batch * T * per * cfg.act_dtype().itemsize
 
 
-def _lm_bound(cfg, batch: int, S: int, T: int, read_cache: int) -> dict:
-    """The least time of one LM call on ``batch`` sequences of ``S`` new
-    tokens against a cache of ``T`` positions (prefill: S = T, causal;
-    decode: S = 1, attending to ``read_cache`` positions): the layers'
-    matmuls, the attention's two products and the head's (last token
-    only) at the bf16 peak; the bytes of every parameter (f32, as stored),
-    the cache read (``read_cache`` positions) or written (``T``), and the
-    tokens and logits."""
+def _lm_param_bytes(cfg, touched=None) -> int:
+    """Bytes of the parameters a serving call reads (f32, as stored): all
+    but the MTP module, and of each MoE layer's experts only ``touched``
+    (the mean the routing reached; None: all)."""
     from repro_torch.models import params as params_lib
     from repro_torch.models import transformer
 
-    H, Dh, L = cfg.num_heads, cfg.head_dim, cfg.num_layers
+    decls = transformer.lm_decls(cfg)
+    out = params_lib.param_bytes(decls)
+    if "mtp" in decls:
+        out -= params_lib.param_bytes(decls["mtp"])
+    if cfg.moe and touched is not None:
+        expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.pdtype().itemsize
+        out -= round(cfg.num_moe_layers * (cfg.num_experts - touched) * expert)
+    return out
+
+
+def _lm_bound(cfg, batch: int, S: int, T: int, read_cache: int, absorb: bool = False,
+              touched=None) -> dict:
+    """The least time of one LM call on ``batch`` sequences of ``S`` new
+    tokens against a cache of ``T`` positions (prefill: S = T, causal;
+    decode: S = 1, attending to ``read_cache`` positions): the layers'
+    matmuls (MoE: k routed experts and the shared one a token), the
+    attention's products (MLA: naive or absorbed, as run, the naive
+    branches expanding K / V once a key position) and the head's (last
+    token only) at the bf16 peak; the bytes of the parameters read (f32, as
+    stored; MoE: the experts the routing touched), the cache read
+    (``read_cache`` positions) or written (``T``), and the tokens and
+    logits."""
+    L = cfg.num_layers
     pairs = batch * S * (S + 1) / 2 if S > 1 else batch * read_cache
-    flops = (2 * _lm_layer_params(cfg) * batch * S + 4 * H * Dh * L * pairs
+    keys = batch * S if S > 1 else batch * read_cache
+    flops = (2 * _lm_token_params(cfg, absorb) * batch * S
+             + L * (pairs * _lm_pair_flops(cfg, absorb) + keys * _lm_expand_flops(cfg, absorb))
              + 2 * cfg.d_model * cfg.vocab_size * batch)
     cache = _lm_cache_bytes(cfg, batch, T if S > 1 else read_cache)
-    nbytes = (params_lib.param_bytes(transformer.lm_decls(cfg)) + cache + 4 * batch * S
+    nbytes = (_lm_param_bytes(cfg, touched) + cache + 4 * batch * S
               + cfg.vocab_size * batch * cfg.act_dtype().itemsize)
     return _bound(flops, "bf16", nbytes)
+
+
+def _within(out, ref):
+    """(max |out - ref|, whether within LM_RTOL / LM_ATOL, the largest
+    |out - ref| / (LM_ATOL + LM_RTOL |ref|): the margin)."""
+    err, ok = close_matmul(out, ref, rtol=LM_RTOL, atol=LM_ATOL)
+    ratio = float(((out - ref).abs() / (LM_ATOL + LM_RTOL * ref.abs())).max())
+    return err, ok, ratio
 
 
 def _lm_checks(arch: str, model, seed: int, smi: str) -> dict:
@@ -3973,20 +4063,13 @@ def _lm_checks(arch: str, model, seed: int, smi: str) -> dict:
         last, _ = tf.lm_prefill(model, toks, cfg32)
         half = tf.lm_forward(model, toks, cfg)[0].float()
         card = tf.lm_forward(model, toks[:Bc, :Sc], cfg32)[0]
-    def within(out, ref):
-        """(max |out - ref|, whether within LM_RTOL / LM_ATOL, the largest
-        |out - ref| / (LM_ATOL + LM_RTOL |ref|): the margin)."""
-        err, ok = close_matmul(out, ref, rtol=LM_RTOL, atol=LM_ATOL)
-        ratio = float(((out - ref).abs() / (LM_ATOL + LM_RTOL * ref.abs())).max())
-        return err, ok, ratio
-
-    tf_err, tf_ok, tf_ratio = within(steps, full)
-    pf_err, pf_ok, pf_ratio = within(last[:, 0], full[:, -1])
+    tf_err, tf_ok, tf_ratio = _within(steps, full)
+    pf_err, pf_ok, pf_ratio = _within(last[:, 0], full[:, -1])
     cpu = tf.LMModel(cfg, tree_lib.tree_map(lambda t: t.cpu(), model.tree()))
     with torch.inference_mode():
         ref = tf.lm_forward(cpu, toks[:Bc, :Sc].cpu(), cfg32)[0]
     del cpu
-    cc_err, cc_ok, cc_ratio = within(card.cpu(), ref)
+    cc_err, cc_ok, cc_ratio = _within(card.cpu(), ref)
     out = {"arch": arch, "check": "teacher forcing, card against CPU, bf16 against f32",
            "teacher_forcing": {"batch": B, "seq": S, "max_abs_err": tf_err, "ok": tf_ok,
                                "of_tolerance": tf_ratio},
@@ -4003,69 +4086,143 @@ def _lm_checks(arch: str, model, seed: int, smi: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def routed_experts(into: list):
+    """While the block runs, append the expert ids of every MoE dispatch
+    (``top_i``, a reference: no copy, no sync) to ``into``."""
+    from repro_torch.models import moe
+
+    inner = moe.moe_ffn_dispatch
+
+    def spy(x, top_w, top_i, p, cfg):
+        into.append(top_i)
+        return inner(x, top_w, top_i, p, cfg)
+
+    moe.moe_ffn_dispatch = spy
+    try:
+        yield into
+    finally:
+        moe.moe_ffn_dispatch = inner
+
+
+def _touched(routed: list):
+    """The mean number of distinct experts one dispatch reached (None
+    where no MoE layer ran)."""
+    import torch
+
+    if not routed:
+        return None
+    return sum(torch.unique(i).numel() for i in routed) / len(routed)
+
+
+def _prefill_prompt(model, prompt, T: int, group):
+    """(last logits, cache of T positions) for the prompt: one
+    ``make_prefill_step(max_len=T)`` call, or, with ``group``, one prefill
+    per ``group`` sequences whose caches are copied into the rows of one
+    cache of T positions."""
+    import torch
+
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.train.train_step import make_prefill_step
+
+    cfg = model.cfg
+    if group is None:
+        return make_prefill_step(cfg, max_len=T)(model, prompt)
+    B, S = prompt.shape
+    cache = init_cache(cfg, B, T, device=prompt.device)
+    prefill, lasts = make_prefill_step(cfg), []
+    for g0 in range(0, B, group):
+        last, part = prefill(model, prompt[g0:g0 + group])
+        for stack, leaves in part.items():
+            for name, t in leaves.items():
+                cache[stack][name][:, g0:g0 + group, :S] = t
+        lasts.append(last)
+        del part
+    return torch.cat(lasts), cache
+
+
 def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
-    """One ``LM_ROWS`` row as a counted window that must launch no kernel:
-    a prefill row times LM_REPS ``make_prefill_step`` calls after a warm-up;
-    a decode row prefills LM_PROMPT tokens into a cache of T positions and
-    times LM_DECODE_STEPS ``make_decode_step`` calls (p50 over all but the
-    first)."""
+    """One ``LM_ROWS`` / ``MOE_ROWS`` row as a counted window that must
+    launch no kernel: a prefill row times LM_REPS ``make_prefill_step``
+    calls after a warm-up; a decode row prefills its prompt (LM_PROMPT
+    tokens unless the row's options say otherwise; in batch groups where
+    they say so) into a cache of T positions and times LM_DECODE_STEPS
+    ``make_decode_step(mla_absorb=...)`` calls (p50 over all but the
+    first).  MoE rows count the experts each dispatch reached, for the
+    bound's bytes."""
     import numpy as np
     import torch
 
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import greedy
     from repro_torch.train.train_step import make_decode_step, make_prefill_step
 
-    arch, row, shape, B, T, cuts = spec
+    arch, row, shape, B, T, cuts = spec[:6]
+    opts = spec[6] if len(spec) > 6 else {}
+    absorb, prompt_len = opts.get("absorb", False), opts.get("prompt", LM_PROMPT)
     cfg = model.cfg
     dev = torch.device(DEVICE)
     V = cfg.vocab_size
     out = {"arch": arch, "row": row, "shape": shape, "batch": B}
+    if cfg.attention == "mla":
+        out["mla_absorb"] = absorb
+    routed = []
     _peak_reset()
     if row == "prefill":
         toks = _lm_tokens(cfg, B, T, seed, dev)
         prefill = make_prefill_step(cfg, max_len=T + LM_DECODE_STEPS)
-        (res, times), counts = counted(
-            lambda: _timed_calls(lambda: prefill(model, toks), LM_REPS, warmup=1))
+        with routed_experts(routed):
+            (res, times), counts = counted(
+                lambda: _timed_calls(lambda: prefill(model, toks), LM_REPS, warmup=1))
         last, cache = res
         if tuple(last.shape) != (B, 1, V) or not bool(torch.isfinite(last).all()):
             fail(f"lm {arch} {row}: logits {tuple(last.shape)} or not finite")
-        want = (cfg.num_layers, B, T + LM_DECODE_STEPS, cfg.num_kv_heads, cfg.head_dim)
-        if tuple(cache["dense"]["k"].shape) != want:
-            fail(f"lm {arch} {row}: cache {tuple(cache['dense']['k'].shape)}, want {want}")
+        got = {f"{k}/{n}": tuple(t.shape) for k, c in cache.items() for n, t in c.items()}
+        want = {f"{k}/{n}": shape for k, _, _, L in transformer._stacks(cfg)
+                for n, shape in transformer._cache_shapes(
+                    cfg, L, B, T + LM_DECODE_STEPS).items()}
+        if got != want:
+            fail(f"lm {arch} {row}: cache {got}, want {want}")
         del res, last, cache
         p50 = float(np.median(times))
-        bound = _lm_bound(cfg, B, T, T + LM_DECODE_STEPS, 0)
+        touched = _touched(routed)
+        bound = _lm_bound(cfg, B, T, T + LM_DECODE_STEPS, 0, touched=touched)
         out.update(seq=T, calls=len(times), p50_ms=p50 * 1e3, tokens_per_s=B * T / p50)
     else:
-        prompt = _lm_tokens(cfg, B, LM_PROMPT, seed, dev)
-        prefill, decode = make_prefill_step(cfg, max_len=T), make_decode_step(cfg)
+        prompt = _lm_tokens(cfg, B, prompt_len, seed, dev)
+        decode = make_decode_step(cfg, mla_absorb=absorb)
 
         def run():
             t0 = time.perf_counter()
-            last, cache = prefill(model, prompt)
+            last, cache = _prefill_prompt(model, prompt, T, opts.get("group"))
             tok = greedy(last)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
+            routed.clear()  # the bound reads the decode steps' routing
             toks, times = [tok], []
             for i in range(LM_DECODE_STEPS):
                 t0 = time.perf_counter()
-                tok, cache = decode(model, cache, tok[:, None], LM_PROMPT + i)
+                tok, cache = decode(model, cache, tok[:, None], prompt_len + i)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
                 toks.append(tok)
             return torch.stack(toks, 1), times, prefill_s
 
-        (gen, times, prefill_s), counts = counted(run)
+        with routed_experts(routed):
+            (gen, times, prefill_s), counts = counted(run)
         if tuple(gen.shape) != (B, LM_DECODE_STEPS + 1) or not bool(
                 ((gen >= 0) & (gen < V)).all()):
             fail(f"lm {arch} {row}: generated {tuple(gen.shape)} or out of range")
         p50 = float(np.median(times[1:]))
-        bound = _lm_bound(cfg, B, 1, T, T)
-        valid = _lm_bound(cfg, B, 1, T, LM_PROMPT + LM_DECODE_STEPS // 2)
-        out.update(cache_T=T, prompt=LM_PROMPT, prompt_prefill_s=prefill_s,
+        touched = _touched(routed)
+        bound = _lm_bound(cfg, B, 1, T, T, absorb, touched)
+        valid = _lm_bound(cfg, B, 1, T, prompt_len + LM_DECODE_STEPS // 2, absorb, touched)
+        out.update(cache_T=T, prompt=prompt_len, prompt_prefill_s=prefill_s,
                    steps=LM_DECODE_STEPS, p50_ms=p50 * 1e3, tokens_per_s=B / p50,
                    bound_valid_prefix_ms=valid["ms"])
     require(counts, {}, f"lm {arch} {row}")
+    if touched is not None:
+        out["touched_experts"] = touched
     out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                bound_ms=bound["ms"], bound_by=bound["by"], bound_tflop=bound["ops"] / 1e12,
                bound_gb=bound["bytes"] / 1e9, reduced=cuts, launches=counts, device=smi)
@@ -4295,6 +4452,310 @@ def phase_models(seed: int, smi: str) -> tuple[list[dict], list[dict]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: MoE and MLA serving at published widths, LM training
+# ---------------------------------------------------------------------------
+
+#: the MoE archs at published widths, cut in depth only
+MOE_DEPTH = {
+    "deepseek-v3-671b": (dict(num_layers=2, first_dense_layers=1),
+                         "2 of 61 layers: the first dense layer and one MoE layer, the MTP "
+                         "module in the tree (58.5 GB f32); one MoE layer is 45.9 GB f32 "
+                         "(256 x 3 x 7168 x 2048 x 4 B)"),
+    "qwen3-moe-235b-a22b": (dict(num_layers=2),
+                            "2 of 94 layers (24.9 GB f32); one MoE layer is 9.7 GB f32 "
+                            "(128 x 3 x 4096 x 1536 x 4 B)"),
+}
+# (arch, row, configs.base.LM_SHAPES name, batch, sequence or cache length,
+# the cuts of that shape, options: mla_absorb, the decode prompt's length,
+# the prompt prefill's batch group)
+MOE_ROWS = (
+    ("deepseek-v3-671b", "prefill", "prefill_32k", 1, 4096,
+     ["batch 1 of 32, 4096 of 32768 tokens: with 128 heads JAX's chunk schedule holds "
+      "(1, 128, S, 1024) score tiles in bf16 + f32, ~4 GB at S = 4096, ~34 GB at 32768"], {}),
+    ("deepseek-v3-671b", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128", "the cache holds a 4096-token prompt, prefilled one sequence at "
+      "a time and copied into the cache rows"], {"absorb": True, "group": 1}),
+    ("deepseek-v3-671b", "decode", "decode_32k", 4, 4096,
+     ["batch 4 of 128 and a 4096-position cache: at 32 x 32768 the naive branch would "
+      "expand K and V to 34 GB each", "the cache holds a 3072-token prompt"],
+     {"absorb": False, "prompt": 3072, "group": 1}),
+    ("deepseek-v3-671b", "decode", "decode_32k", 4, 4096,
+     ["batch 4 of 128 and a 4096-position cache, beside the naive row",
+      "the cache holds a 3072-token prompt"], {"absorb": True, "prompt": 3072, "group": 1}),
+    ("qwen3-moe-235b-a22b", "prefill", "prefill_32k", 4, 4096,
+     ["batch 4 of 32", "4096 tokens of 32768"], {}),
+    ("qwen3-moe-235b-a22b", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128", "the cache holds a 4096-token prompt, prefilled 4 sequences at "
+      "a time"], {"group": 4}),
+)
+MOE_CHECK = (2, 16)  # teacher forcing (B, S), f32 activations
+MOE_DISPATCH_TOKENS = 64  # the dispatch against moe_ffn_dense, one layer
+REDUCED_CHECK = (2, 12, 4)  # card against CPU at REDUCED: batch, prompt, decode steps
+LM_TRAIN_LR = 3e-4  # launch/train.py's AdamW for the LM archs
+LM_TRAIN_STEPS = 10  # the p50 is over the nine after the first
+REDUCED_TRAIN_STEPS = 3
+LM_TRAIN_RTOL = 1e-5  # REDUCED train losses, card against CPU
+# (arch, configs.base.LM_SHAPES name, batch, sequence, cuts)
+LM_TRAIN = ("smollm-135m", "train_4k", 8, 4096,
+            ["batch 8 of 256: one card, the rest are data-parallel replicas"])
+
+
+def _moe_model(arch: str, seed: int):
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import LMModel
+
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(configs.get(arch), **MOE_DEPTH[arch][0])
+    return LMModel.build(cfg, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def _moe_checks(arch: str, model, seed: int, smi: str) -> dict:
+    """At published widths, f32 activations, TF32 off, each held at LM_RTOL
+    / LM_ATOL: every position decoded through the cache against the
+    forward (MLA: naive and absorbed), prefill's last logits against the
+    forward's last row, absorbed against naive logits, and the dispatch
+    against ``moe_ffn_dense`` on the MoE layer over MOE_DISPATCH_TOKENS
+    random tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device(DEVICE)
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    B, S = MOE_CHECK
+    toks = _lm_tokens(cfg32, B, S, seed + 1, dev)
+    modes = (False, True) if cfg32.attention == "mla" else (False,)
+    with torch.inference_mode():
+        full = tf.lm_forward(model, toks, cfg32)[0]
+        last, _ = tf.lm_prefill(model, toks, cfg32)
+        steps = {}
+        for absorb in modes:
+            cache = tf.init_cache(cfg32, B, S, device=dev)
+            steps[absorb] = torch.cat([
+                tf.lm_decode_step(model, cache, toks[:, t:t + 1], t, cfg32,
+                                  mla_absorb=absorb)[0] for t in range(S)], dim=1)
+            del cache
+    out = {"arch": arch, "check": "teacher forcing, absorbed against naive, dispatch "
+           "against moe_ffn_dense", "batch": B, "seq": S}
+    oks = []
+    for absorb in modes:
+        err, ok, ratio = _within(steps[absorb], full)
+        out[f"teacher_forcing{'_absorbed' if absorb else ''}"] = {
+            "max_abs_err": err, "ok": ok, "of_tolerance": ratio}
+        oks.append(ok)
+    err, ok, ratio = _within(last[:, 0], full[:, -1])
+    out["prefill_vs_forward"] = {"max_abs_err": err, "ok": ok, "of_tolerance": ratio}
+    oks.append(ok)
+    if len(modes) == 2:
+        err, ok, ratio = _within(steps[True], steps[False])
+        out["absorbed_vs_naive"] = {"max_abs_err": err, "ok": ok, "of_tolerance": ratio}
+        oks.append(ok)
+    del full, last, steps
+    layer = tf._layer(model["moe_blocks"], 0)["mlp"]
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    x = torch.randn((1, MOE_DISPATCH_TOKENS, cfg32.d_model), generator=g, device=dev)
+    with torch.inference_mode():
+        probs = moe.router_probs(x, layer["router"], cfg32)
+        top_w, top_i = moe.topk_weights(probs, cfg32)
+        disp = moe.moe_ffn_dispatch(x, top_w, top_i, layer, cfg32)
+        dense = moe.moe_ffn_dense(x, probs, layer, cfg32)
+    err, ok, ratio = _within(disp, dense)
+    out["dispatch_vs_dense"] = {"tokens": MOE_DISPATCH_TOKENS, "max_abs_err": err, "ok": ok,
+                                "of_tolerance": ratio,
+                                "experts_reached": int(torch.unique(top_i).numel())}
+    oks.append(ok)
+    out.update(rtol=LM_RTOL, atol=LM_ATOL, device=smi)
+    if not all(oks):
+        fail(f"lm {arch} checks: {json.dumps(out)}")
+    return out
+
+
+def _reduced_card_vs_cpu(arch: str, seed: int, smi: str) -> dict:
+    """``REDUCED`` (f32), the same weights and tokens on the card and the
+    CPU: forward logits, a prefill and REDUCED_CHECK decode steps fed the
+    same tokens (MLA: naive and absorbed), LM_RTOL / LM_ATOL; then
+    REDUCED_TRAIN_STEPS AdamW(3e-4) ``make_train_step(cfg, "lm")`` steps on
+    ``TokenStream`` batches, losses within LM_TRAIN_RTOL."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.train_step import make_train_step
+
+    dev, host = torch.device(DEVICE), torch.device("cpu")
+    cfg = configs.get_reduced(arch)
+    gpu = tf.LMModel.build(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    cpu = tf.LMModel(cfg, tree_lib.tree_map(lambda t: t.cpu(), gpu.tree()))
+    B, P, n = REDUCED_CHECK
+    toks = _lm_tokens(cfg, B, P + n, seed + 3, host)
+    modes = (False, True) if cfg.attention == "mla" else (False,)
+    outs = {}
+    for model, d in ((gpu, dev), (cpu, host)):
+        t = toks.to(d)
+        with torch.inference_mode():
+            got = {"forward": model(t)}
+            for absorb in modes:
+                _, cache = tf.lm_prefill(model, t[:, :P], cfg, max_len=P + n)
+                got[f"decode absorb={absorb}"] = torch.cat([tf.lm_decode_step(
+                    model, cache, t[:, i:i + 1], i, cfg, mla_absorb=absorb)[0]
+                    for i in range(P, P + n)], 1)
+        outs[d.type] = got
+    out = {"arch": arch, "check": "REDUCED card against CPU: serving, train steps"}
+    oks = []
+    for key, a in outs["cuda" if DEVICE == "cuda" else "cpu"].items():
+        err, ok, ratio = _within(a.cpu(), outs["cpu"][key])
+        out[key] = {"max_abs_err": err, "ok": ok, "of_tolerance": ratio}
+        oks.append(ok)
+    opt = opt_lib.adamw(LM_TRAIN_LR)
+    step = make_train_step(cfg, "lm", opt)
+    stream = TokenStream(cfg.vocab_size, 16, 4, seed=seed)
+    pg, pc = gpu.tree(), cpu.tree()
+    sg, sc = opt.init(pg), opt.init(pc)
+    losses = []
+    for t in range(REDUCED_TRAIN_STEPS):
+        batch = torch.as_tensor(stream.batch(t)["tokens"])
+        pg, sg, mg = step(pg, sg, {"tokens": batch.to(dev)})
+        pc, sc, mc = step(pc, sc, {"tokens": batch})
+        losses.append((float(mg["loss"]), float(mc["loss"])))
+    loss_ok = all(abs(a - b) <= LM_TRAIN_RTOL * abs(b) for a, b in losses)
+    out.update(train_losses=losses, losses_ok=loss_ok, rtol=LM_RTOL, atol=LM_ATOL,
+               train_rtol=LM_TRAIN_RTOL, device=smi)
+    if not (all(oks) and loss_ok):
+        fail(f"lm {arch} REDUCED checks: {json.dumps(out)}")
+    return out
+
+
+def _lm_train_bound(cfg, B: int, S: int) -> dict:
+    """The least time of one train step: three times the forward's flops
+    (the layers, the causal attention, the head on every position) at the
+    bf16 peak; bytes the parameters, their gradients and AdamW's two
+    moments, f32, each read and written (7 passes), and the tokens."""
+    from repro_torch.models import params as params_lib
+    from repro_torch.models import transformer
+
+    pairs = B * S * (S + 1) / 2
+    fwd = (2 * _lm_token_params(cfg) * B * S
+           + cfg.num_layers * (pairs * _lm_pair_flops(cfg) + B * S * _lm_expand_flops(cfg))
+           + 2 * cfg.d_model * cfg.vocab_size * B * S)
+    P = params_lib.param_bytes(transformer.lm_decls(cfg))
+    return _bound(3 * fwd, "bf16", 7 * P + 4 * B * S)
+
+
+def _lm_train_row(seed: int, smi: str) -> dict:
+    """``LM_TRAIN`` at published widths and full depth through
+    ``launch.train.build(reduced=False)`` (AdamW(3e-4), ``TokenStream``
+    batches, each layer checkpointed: the published config sets
+    ``remat``): LM_TRAIN_STEPS steps as one counted window that must
+    launch no kernel (p50 of all but the first, tokens/s, peak memory, the
+    losses finite), then one ``microbatches=2`` step."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    arch, shape, B, S, cuts = LM_TRAIN
+    dev = torch.device(DEVICE)
+    cfg = configs.get(arch)
+    params, state, step, batches = launch_train.build(arch, reduced=False, seq_len=S,
+                                                      batch=B, device=dev)
+    _peak_reset()
+
+    def run(params, state):
+        losses, times = [], []
+        for t in range(LM_TRAIN_STEPS):
+            batch = batches(t)
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))  # waits for the step
+            times.append(time.perf_counter() - t0)
+        return params, state, losses, times
+
+    (params, state, losses, times), counts = counted(lambda: run(params, state))
+    require(counts, {}, f"lm {arch} {shape}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"lm {arch} {shape}: losses {losses}")
+    mb_step = make_train_step(cfg, "lm", opt_lib.adamw(LM_TRAIN_LR), microbatches=2)
+    batch = batches(LM_TRAIN_STEPS)
+    _peak_reset()
+
+    def one():
+        t0 = time.perf_counter()
+        _, _, m = mb_step(params, state, batch)
+        return float(m["loss"]), time.perf_counter() - t0
+
+    (mb_loss, mb_s), mb_counts = counted(one)
+    require(mb_counts, {}, f"lm {arch} {shape} microbatches=2")
+    if not math.isfinite(mb_loss):
+        fail(f"lm {arch} {shape} microbatches=2: loss {mb_loss}")
+    p50 = float(np.median(times[1:]))
+    bound = _lm_train_bound(cfg, B, S)
+    return {"arch": arch, "row": "train", "shape": shape, "batch": B, "seq": S,
+            "steps": LM_TRAIN_STEPS, "p50_ms": p50 * 1e3, "first_step_ms": times[0] * 1e3,
+            "tokens_per_s": B * S / p50, "peak_gb": peak, "losses": losses,
+            "microbatches_2": {"ms": mb_s * 1e3, "loss": mb_loss,
+                               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                               "launches": mb_counts},
+            "bound_ms": bound["ms"], "bound_by": bound["by"],
+            "bound_tflop": bound["ops"] / 1e12, "bound_gb": bound["bytes"] / 1e9,
+            "reduced": cuts, "launches": counts, "device": smi}
+
+
+def phase_moe(seed: int, smi: str) -> list[dict]:
+    """Phase 13: deepseek-v3 and qwen3-moe at published widths cut in depth
+    (``MOE_DEPTH``; their ``REDUCED`` configs held card against CPU first,
+    serving and training), the checks at full width, ``MOE_ROWS``, one
+    model on the card at a time; then LM training (``LM_TRAIN``).  Every
+    window must launch no kernel.  Returns the ``lm`` lines."""
+    import torch
+
+    t0 = time.perf_counter()
+    lines = []
+    for arch, (_, depth) in MOE_DEPTH.items():
+        red, counts = counted(lambda: _reduced_card_vs_cpu(arch, seed, smi))
+        require(counts, {}, f"lm {arch} REDUCED checks")
+        red["launches"] = counts
+        lines.append(red)
+        log("lm " + json.dumps(red))
+        model = _moe_model(arch, seed)
+        check, counts = counted(lambda: _moe_checks(arch, model, seed, smi))
+        require(counts, {}, f"lm {arch} checks")
+        check.update(depth=depth, launches=counts)
+        lines.append(check)
+        log("lm " + json.dumps(check))
+        for spec in MOE_ROWS:
+            if spec[0] == arch:
+                row = _lm_row(model, spec, seed, smi)
+                row["reduced"] = [depth] + row["reduced"]
+                lines.append(row)
+                log("lm " + json.dumps(row))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    lines.append(_lm_train_row(seed, smi))
+    log("lm " + json.dumps(lines[-1]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13 seconds {time.perf_counter() - t0:.3f}")
+    return lines
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4341,6 +4802,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_models(args.seed, env["nvidia_smi"])
+    phase_moe(args.seed, env["nvidia_smi"])
     rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],

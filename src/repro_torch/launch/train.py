@@ -1,5 +1,5 @@
 """Training launcher with the fault-tolerance supervisor in the loop (port of
-``repro/launch/train.py``, the recsys and GNN families).
+``repro/launch/train.py``: the LM, recsys and GNN families).
 
 The loop is JAX's: a batch per step, the NaN guard (a non-finite loss drops
 the step's update; a run of them restores the last checkpoint), the
@@ -7,12 +7,10 @@ straggler log, an ``AsyncCheckpointer`` save every ``--ckpt-every`` steps
 and ``--resume``.  Reduced configs (``build(..., reduced=False)`` gives the
 published widths); the card by default, the CPU only when asked:
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --steps 5 --device cpu
-
-LM training (JAX's default ``smollm-135m``) waits for its slice: asking
-for an LM architecture exits with a message that names it.
 """
 from __future__ import annotations
 
@@ -26,46 +24,38 @@ import numpy as np
 import torch
 
 from repro_torch import configs
-from repro_torch.data.tokens import recsys_batch
+from repro_torch.data.tokens import TokenStream, recsys_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import gnn
 from repro_torch.models import params as params_lib
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as steps
 from repro_torch.train.fault import Supervisor, SupervisorConfig
 
-#: the families this launcher trains
-FAMILIES = ("recsys", "gnn")
-
-
-def _unported(arch: str) -> bool:
-    return arch in configs.FAMILY and configs.family(arch) in steps.UNPORTED_FAMILIES
-
-
-def _not_ported(arch: str) -> str:
-    return (f"{arch!r} is not ported yet: it comes with "
-            f"{steps.UNPORTED_FAMILIES[configs.family(arch)]}")
-
 
 def build(arch: str, *, reduced: bool = True, seq_len: int = 64, batch: int = 8,
           device: DeviceLike = None):
-    """(params, optimizer state, jit-free step, batches) for ``arch``, as
-    JAX's ``build``: weights from a generator seeded with 0 on ``device``
-    (default CUDA).  Recsys: AdamW at 1e-3, ``batches(t)`` the step-t
-    ``recsys_batch``.  GNN: a fixed random graph of 200 nodes, 16 features
-    and 800 edges from ``np.random.default_rng(0)`` (JAX's), AdamW at
-    1e-2.  ``seq_len`` is the LM's and unused here."""
-    if _unported(arch):
-        raise KeyError(_not_ported(arch))
+    """(params, optimizer state, step, batches) for ``arch``, as JAX's
+    ``build``: weights from a generator seeded with 0 on ``device``
+    (default CUDA).  LM: AdamW at 3e-4, ``batches(t)`` the step-t
+    ``TokenStream(vocab, seq_len, batch)`` batch.  Recsys: AdamW at 1e-3,
+    ``batches(t)`` the step-t ``recsys_batch``.  GNN: a fixed random graph
+    of 200 nodes, 16 features and 800 edges from
+    ``np.random.default_rng(0)`` (JAX's), AdamW at 1e-2."""
     fam = configs.family(arch)
-    if fam not in FAMILIES:
-        raise KeyError(arch)
     dev = resolve_device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get(arch)
     gen = torch.Generator(device=dev).manual_seed(0)
-    if fam == "recsys":
+    if fam == "lm":
+        params = params_lib.init_params(transformer.lm_decls(cfg), generator=gen, device=dev)
+        opt = opt_lib.adamw(3e-4)
+        stream = TokenStream(cfg.vocab_size, seq_len, batch)
+
+        def batches(t: int) -> dict:
+            return {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(t).items()}
+    elif fam == "recsys":
         params = params_lib.init_params(recsys.recsys_decls(cfg), generator=gen, device=dev)
         opt = opt_lib.adamw(1e-3)
         vocabs = cfg.vocabs[: cfg.n_sparse]
@@ -73,7 +63,7 @@ def build(arch: str, *, reduced: bool = True, seq_len: int = 64, batch: int = 8,
         def batches(t: int) -> dict:
             return {k: torch.as_tensor(v, device=dev)
                     for k, v in recsys_batch(t, batch, vocabs).items()}
-    else:
+    elif fam == "gnn":
         n, d, E = 200, 16, 800
         g = np.random.default_rng(0)
         params = params_lib.init_params(gnn.gcn_decls(cfg, d), generator=gen, device=dev)
@@ -86,6 +76,8 @@ def build(arch: str, *, reduced: bool = True, seq_len: int = 64, batch: int = 8,
 
         def batches(t: int) -> dict:
             return fixed
+    else:
+        raise KeyError(arch)
     step = steps.make_train_step(cfg, fam, opt)
     return params, opt.init(params), step, batches
 
@@ -93,8 +85,7 @@ def build(arch: str, *, reduced: bool = True, seq_len: int = 64, batch: int = 8,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
-                    help="deepfm, fm, xdeepfm, autoint or gcn-cora (LM "
-                         "training is not ported yet)")
+                    help="an LM (smollm-135m, gemma-2b, ...), recsys or GNN arch")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -105,10 +96,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if _unported(args.arch):
-        sys.exit(f"repro_torch.launch.train: {_not_ported(args.arch)}. Ported: "
-                 + ", ".join(a for a in configs.ARCHS
-                             if configs.family(a) in FAMILIES))
     dev = resolve_device(args.device)
     params, state, step_fn, batches = build(args.arch, seq_len=args.seq_len,
                                             batch=args.batch, device=dev)

@@ -1,48 +1,45 @@
 """LM transformer (llama / gemma / qwen3 / deepseek families) — port of
-``repro/models/transformer.py``: every architecture's declarations, and
-the dense GQA path for serving.
+``repro/models/transformer.py``: every architecture's declarations,
+serving (forward, prefill, greedy decode through the cache) and the loss.
 
 The parameter tree is JAX's: per-layer leaves stacked on a leading (L, ...)
-axis under ``dense_blocks`` (and ``moe_blocks`` / ``mtp``), ``wq`` (L, d, H,
-Dh), ``wo`` (L, H, Dh, d).  Where JAX scans the stack, the port loops over
-its layers, each a view of the stacked leaves.  The decode cache is JAX's
-too: ``{"dense": {"k", "v"}}`` of (L, B, T, KV, Dh) in the activation dtype.
+axis under ``dense_blocks`` and ``moe_blocks`` (and ``mtp``), ``wq`` (L, d,
+H, Dh), ``wo`` (L, H, Dh, d).  Where JAX scans a stack, the port loops over
+its layers, each a view of the stacked leaves; MoE models with leading
+dense layers (deepseek-v3) run the dense stack, then the MoE stack.  The
+decode cache is JAX's too: ``{"dense": ..., "moe": ...}``, each {"k",
+"v"} of (L, B, T, KV, Dh) (MLA: {"ckv", "krope"} of (L, B, T, kv_lora) /
+(L, B, T, rope)) in the activation dtype.  Where ``cfg.remat`` is set and
+gradients flow, each layer runs under ``torch.utils.checkpoint``
+(``jax.checkpoint``'s role): its activations are recomputed in the
+backward pass, and no value changes.
 
 Public entry points:
   lm_decls(cfg)                              — Param declarations
   lm_forward(params, tokens, cfg)            — (B,S) -> (logits, h, aux)
+  lm_loss(params, batch, cfg)                — next-token CE + MoE aux + MTP
   init_cache(cfg, batch, max_len, device=)   — zeroed decode cache
   lm_prefill(params, tokens, cfg, max_len=)  -> (last logits, cache)
-  lm_decode_step(params, cache, tokens, pos, cfg) -> (logits, cache)
-
-MoE (routed experts, ``moe=True``) and MLA (``attention="mla"``) are
-declared, so every architecture's parameter count is exact, but their
-forward passes raise a ``KeyError`` naming the ROADMAP item that brings
-them (``UNPORTED``).  ``lm_loss`` comes with LM training.
+  lm_decode_step(params, cache, tokens, pos, cfg, mla_absorb=)
+                                             -> (logits, cache)
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import params as params_lib
-from repro_torch.models.attention import gqa_attention
-from repro_torch.models.layers import glu_mlp, rms_norm
+from repro_torch.models.attention import gqa_attention, mla_attention
+from repro_torch.models.layers import glu_mlp, rms_norm, softmax_cross_entropy
 from repro_torch.models.params import Param
 
 PyTree = Any
-
-#: what the port does not run yet, and the ROADMAP item that brings it
-UNPORTED = "MoE and MLA serving (ROADMAP Queue 1, item 3b)"
-
-
-def _check_ported(cfg: LMConfig) -> None:
-    if cfg.moe or cfg.attention == "mla":
-        raise KeyError(f"{cfg.name!r} is not ported yet: its "
-                       f"{'MoE' if cfg.moe else 'MLA'} layers come with {UNPORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -147,14 +144,68 @@ def _layer(blocks, i: int):
     return {key: _layer(blocks[key], i) for key in blocks.keys()}
 
 
-def _block(p, h, positions, cfg, *, cache=None, cache_index=None):
+def _attn_call(p, x, positions, cfg, cache=None, cache_index=None, mla_absorb=False):
+    if cfg.attention == "mla":
+        return mla_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index,
+                             absorb=mla_absorb)
+    return gqa_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index)
+
+
+def _moe_ffn(p, x, cfg):
+    """Routed experts (+ the shared expert).  Returns (out, aux loss): the
+    routing of JAX's ``_moe_ffn`` without a mesh, computed by dispatch
+    (``moe.moe_ffn_dispatch``) where JAX computes every expert."""
+    probs = moe_lib.router_probs(x, p["router"], cfg)
+    top_w, top_i = moe_lib.topk_weights(probs, cfg)
+    aux = moe_lib.load_balance_loss(probs, top_i, cfg)
+    out = moe_lib.moe_ffn_dispatch(x, top_w, top_i, p, cfg)
+    if cfg.num_shared_experts:
+        out = out + glu_mlp(x, p["shared_wg"], p["shared_wu"], p["shared_wd"],
+                            activation=cfg.activation)
+    return out, aux
+
+
+def _block(p, h, positions, cfg, *, moe=False, cache=None, cache_index=None,
+           mla_absorb=False):
+    """One layer.  Returns (h, this layer's K/V or cache, MoE aux loss)."""
     hn = rms_norm(h, p["attn_norm"], eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
-    attn_out, kv = gqa_attention(p["attn"], hn, positions, cfg, cache=cache,
-                                 cache_index=cache_index)
+    attn_out, kv = _attn_call(p["attn"], hn, positions, cfg, cache=cache,
+                              cache_index=cache_index, mla_absorb=mla_absorb)
     h = h + attn_out
     hn = rms_norm(h, p["mlp_norm"], eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
     mlp = p["mlp"]
-    return h + glu_mlp(hn, mlp["wg"], mlp["wu"], mlp["wd"], activation=cfg.activation), kv
+    if moe:
+        ffn_out, aux = _moe_ffn(mlp, hn, cfg)
+    else:
+        ffn_out = glu_mlp(hn, mlp["wg"], mlp["wu"], mlp["wd"], activation=cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ffn_out, kv, aux
+
+
+def _stacks(cfg: LMConfig) -> list[tuple[str, str, bool, int]]:
+    """(cache key, parameter key, moe, layers) of each stack, in order."""
+    out = []
+    if cfg.num_dense_layers > 0:
+        out.append(("dense", "dense_blocks", False, cfg.num_dense_layers))
+    if cfg.num_moe_layers > 0:
+        out.append(("moe", "moe_blocks", True, cfg.num_moe_layers))
+    return out
+
+
+def _run_stack(blocks, h, positions, cfg, *, moe: bool, layers: int):
+    """The full forward of a stack (no cache): (h, the summed aux loss).
+    With ``cfg.remat`` and gradients on, each layer is checkpointed."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(layers):
+        p = _layer(blocks, i)
+        if remat:
+            h, a = checkpoint(lambda p, h: _block(p, h, positions, cfg, moe=moe)[::2],
+                              p, h, use_reentrant=False)
+        else:
+            h, _, a = _block(p, h, positions, cfg, moe=moe)
+        aux = aux + a
+    return h, aux
 
 
 def _embed(params, tokens, cfg):
@@ -171,48 +222,93 @@ def _head(params, h, cfg):
 
 
 # ---------------------------------------------------------------------------
-# forward / prefill / decode
+# forward / loss / prefill / decode
 # ---------------------------------------------------------------------------
 
 def lm_forward(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full causal forward. Returns (logits, final_hidden, moe_aux_loss);
-    the aux loss is 0 on the dense path."""
-    _check_ported(cfg)
+    the aux loss, summed over the MoE layers, is 0 without them."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     h = _embed(params, tokens, cfg)
-    blocks = params["dense_blocks"]
-    for i in range(cfg.num_dense_layers):
-        h, _ = _block(_layer(blocks, i), h, positions, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for _, key, moe, layers in _stacks(cfg):
+        h, a = _run_stack(params[key], h, positions, cfg, moe=moe, layers=layers)
+        if moe:
+            aux = aux + a
     return _head(params, h, cfg), h, aux
+
+
+def lm_loss(params: PyTree, batch: dict, cfg: LMConfig, *, aux_weight: float = 0.01,
+            mtp_weight: float = 0.1) -> tuple[torch.Tensor, dict]:
+    """Next-token CE (the last position masked) + ``aux_weight`` times the
+    MoE aux loss + (with ``cfg.mtp``) ``mtp_weight`` times the MTP CE: one
+    dense block over ``proj`` of [h ; embed(next token)], through the
+    shared head, predicting the token two ahead (the last two positions
+    masked).  Returns (loss, {"ce", "moe_aux"[, "mtp_ce"], "loss"})."""
+    tokens, mask = batch["tokens"], batch.get("mask")
+    logits, h, aux = lm_forward(params, tokens, cfg)
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    valid = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device) \
+        if mask is None else mask.float()
+    valid = torch.cat([valid[:, :-1], torch.zeros_like(valid[:, -1:])], dim=1)
+    ce = softmax_cross_entropy(logits, labels, valid)
+    loss = ce + aux_weight * aux
+    metrics = {"ce": ce, "moe_aux": aux}
+    if cfg.mtp:
+        emb_next = params["embed"][labels.long()].to(h.dtype)
+        mtp_in = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"].to(h.dtype)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        hm, _ = _run_stack(params["mtp"]["block"], mtp_in, positions, cfg, moe=False,
+                           layers=1)
+        logits2 = _head(params, hm, cfg)
+        labels2 = F.pad(tokens[:, 2:], (0, 2))
+        valid2 = torch.cat([valid[:, :-2], torch.zeros_like(valid[:, -2:])], dim=1)
+        ce2 = softmax_cross_entropy(logits2, labels2, valid2)
+        loss = loss + mtp_weight * ce2
+        metrics["mtp_ce"] = ce2
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def _cache_shapes(cfg: LMConfig, L: int, batch: int, max_len: int) -> dict:
+    if cfg.attention == "mla":
+        m = cfg.mla
+        return {"ckv": (L, batch, max_len, m.kv_lora_rank),
+                "krope": (L, batch, max_len, m.qk_rope_head_dim)}
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": shape, "v": shape}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> dict:
-    """Stacked per-layer decode caches (L, B, T, KV, Dh), zeroed, in the
-    activation dtype on ``device`` (default CUDA)."""
-    _check_ported(cfg)
+    """Stacked per-layer decode caches, zeroed, in the activation dtype on
+    ``device`` (default CUDA): per stack ("dense", "moe") {"k", "v"} (L, B,
+    T, KV, Dh), or MLA's {"ckv" (L, B, T, kv_lora), "krope" (L, B, T,
+    rope)}."""
     dev = resolve_device(device)
-    shape = (cfg.num_dense_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"dense": {name: torch.zeros(shape, dtype=cfg.act_dtype(), device=dev)
-                      for name in ("k", "v")}}
+    return {name: {key: torch.zeros(shape, dtype=cfg.act_dtype(), device=dev)
+                   for key, shape in _cache_shapes(cfg, layers, batch, max_len).items()}
+            for name, _, _, layers in _stacks(cfg)}
 
 
 def lm_decode_step(params: PyTree, cache: dict, tokens: torch.Tensor, pos,
-                   cfg: LMConfig) -> tuple[torch.Tensor, dict]:
+                   cfg: LMConfig, *, mla_absorb: bool = False
+                   ) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B, 1) int; ``pos`` the write index (an int
-    or a 0-d tensor, every sequence at the same position).  The new K/V are
-    written into ``cache`` in place.  Returns (logits (B, 1, V), cache)."""
-    _check_ported(cfg)
+    or a 0-d tensor, every sequence at the same position).  The new K/V
+    (MLA: latent and rope key) are written into ``cache`` in place; MLA
+    attends naively or, with ``mla_absorb``, through the latent.  Returns
+    (logits (B, 1, V), cache)."""
     h = _embed(params, tokens, cfg)
     positions = torch.as_tensor(pos, device=h.device).reshape(-1)
-    blocks = params["dense_blocks"]
-    kc, vc = cache["dense"]["k"], cache["dense"]["v"]
-    for i in range(cfg.num_dense_layers):
-        h, _ = _block(_layer(blocks, i), h, positions, cfg,
-                      cache={"k": kc[i], "v": vc[i]}, cache_index=positions[0])
+    for name, key, moe, layers in _stacks(cfg):
+        blocks, stack = params[key], cache[name]
+        for i in range(layers):
+            h, _, _ = _block(_layer(blocks, i), h, positions, cfg, moe=moe,
+                             cache={k: v[i] for k, v in stack.items()},
+                             cache_index=positions[0], mla_absorb=mla_absorb)
     return _head(params, h, cfg), cache
 
 
@@ -221,18 +317,18 @@ def lm_prefill(params: PyTree, tokens: torch.Tensor, cfg: LMConfig, *,
     """Prefill: the full forward over the prompt.  Returns (the last
     token's logits (B, 1, V), the cache padded with zeros to ``max_len``
     positions, default S)."""
-    _check_ported(cfg)
     B, S = tokens.shape
     T = max_len or S
     positions = torch.arange(S, device=tokens.device)
     h = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, B, T, device=tokens.device)["dense"]
-    blocks = params["dense_blocks"]
-    for i in range(cfg.num_dense_layers):
-        h, kv = _block(_layer(blocks, i), h, positions, cfg)
-        cache["k"][i, :, :S] = kv["k"]
-        cache["v"][i, :, :S] = kv["v"]
-    return _head(params, h[:, -1:, :], cfg), {"dense": cache}
+    cache = init_cache(cfg, B, T, device=tokens.device)
+    for name, key, moe, layers in _stacks(cfg):
+        blocks, stack = params[key], cache[name]
+        for i in range(layers):
+            h, kv, _ = _block(_layer(blocks, i), h, positions, cfg, moe=moe)
+            for k, v in kv.items():
+                stack[k][i, :, :S] = v
+    return _head(params, h[:, -1:, :], cfg), cache
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -265,17 +361,18 @@ class LMModel(params_lib.TreeModule):
         return lm_forward(self, tokens, self.cfg)[0]
 
     @torch.inference_mode()
-    def generate(self, tokens: torch.Tensor, steps: int,
-                 max_len: Optional[int] = None) -> torch.Tensor:
+    def generate(self, tokens: torch.Tensor, steps: int, max_len: Optional[int] = None,
+                 *, mla_absorb: bool = False) -> torch.Tensor:
         """Greedy generation: ``lm_prefill`` over the prompt (B, S), then
         ``steps`` ``lm_decode_step`` calls, each fed the token before it.
         Returns the ``steps + 1`` tokens chosen, (B, steps + 1) int32: the
         prefill's, then one per decode call.  ``max_len`` (default S +
-        steps) sizes the cache."""
+        steps) sizes the cache; ``mla_absorb`` picks MLA's decode."""
         S = tokens.shape[1]
         logits, cache = lm_prefill(self, tokens, self.cfg, max_len=max_len or S + steps)
         out = [greedy(logits)]
         for t in range(steps):
-            logits, cache = lm_decode_step(self, cache, out[-1][:, None], S + t, self.cfg)
+            logits, cache = lm_decode_step(self, cache, out[-1][:, None], S + t, self.cfg,
+                                           mla_absorb=mla_absorb)
             out.append(greedy(logits))
         return torch.stack(out, dim=1)

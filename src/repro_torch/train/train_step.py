@@ -1,20 +1,20 @@
 """Train and serve step factories (port of ``repro/train/train_step.py``).
 
-``make_train_step(cfg, family, opt)`` (``recsys`` or ``gnn``) returns
-``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``:
-the loss and its gradient over every leaf of the parameter tree
-(``torch.autograd.grad``), optional microbatch accumulation and int8
+``make_train_step(cfg, family, opt)`` (``lm``, ``recsys`` or ``gnn``)
+returns ``train_step(params, opt_state, batch) -> (params, opt_state,
+metrics)``: the loss and its gradient over every leaf of the parameter
+tree (``torch.autograd.grad``), optional microbatch accumulation and int8
 gradient compression, then ``opt.update``.  ``make_serve_step(cfg,
 "recsys")`` scores a batch of ids (the ``serve_p99`` / ``serve_bulk``
 shapes; the xDeepFM CIN in chunks of ``models.recsys.CIN_CHUNK`` rows);
 ``make_serve_step(cfg, "gnn")`` gives the GCN's logits over a graph;
 ``make_retrieval_step(cfg, k=)`` embeds the query ids and returns the
 top-k candidates (``retrieval_cand``); ``make_prefill_step`` /
-``make_decode_step`` serve the dense LMs (prefill, then greedy decode
-through the cache).  Serve steps take ``(params, ...)``, with ``params`` a
-model (``RecsysModel``, ``GCNModel``, ``LMModel``) or the same tree as a
-dict, and run under ``torch.inference_mode``.  LM training waits for its
-slice (``UNPORTED_FAMILIES``).
+``make_decode_step`` serve the LMs (prefill, then greedy decode through
+the cache; ``mla_absorb`` picks MLA's absorbed decode).  Serve steps take
+``(params, ...)``, with ``params`` a model (``RecsysModel``, ``GCNModel``,
+``LMModel``) or the same tree as a dict, and run under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -27,26 +27,20 @@ from repro_torch.models.gnn import gcn_forward, gcn_loss
 from repro_torch.models.recsys import (
     recsys_forward, recsys_loss, retrieval_score, user_embedding,
 )
-from repro_torch.models.transformer import greedy, lm_decode_step, lm_prefill
+from repro_torch.models.transformer import greedy, lm_decode_step, lm_loss, lm_prefill
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import tree as tree_lib
 
 Tree = Any
 
-#: the slice that brings each family the port does not train yet
-UNPORTED_FAMILIES = {
-    "lm": "LM training (ROADMAP Queue 1, item 3c)",
-}
-
 
 def _loss_fn_for(family: str):
+    if family == "lm":
+        return lm_loss
     if family == "recsys":
         return recsys_loss
     if family == "gnn":
         return gcn_loss
-    if family in UNPORTED_FAMILIES:
-        raise KeyError(f"family {family!r} is not ported yet: it comes with "
-                       f"{UNPORTED_FAMILIES[family]}")
     raise KeyError(family)
 
 
@@ -147,14 +141,16 @@ def make_retrieval_step(cfg, *, k: int = 100) -> Callable:
     return retrieve
 
 
-def make_decode_step(cfg) -> Callable:
+def make_decode_step(cfg, *, mla_absorb: bool = False) -> Callable:
     """LM decode: ``decode(params, cache, tokens (B, 1), pos) ->
     (next tokens (B,) int32, cache)``, one greedy token for every sequence
-    in the batch, the cache written in place."""
+    in the batch, the cache written in place; MLA models attend naively or,
+    with ``mla_absorb``, through the latent cache."""
 
     def decode(params, cache, tokens, pos):
         with torch.inference_mode():
-            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg)
+            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg,
+                                           mla_absorb=mla_absorb)
             return greedy(logits), cache
 
     return decode

@@ -1195,7 +1195,8 @@ def test_gcn_on_card_matches_cpu(cuda, mode):
     assert not any(_build.launches().values())
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "gemma-2b", "deepseek-coder-33b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma-2b", "deepseek-coder-33b",
+                                  "qwen3-moe-235b-a22b", "deepseek-v3-671b"])
 def test_lm_decode_on_card_equals_forward(cuda, arch):
     """REDUCED (f32), TF32 off: every position's logits through the cache
     equal the full forward's on the card, rtol / atol 1e-4."""
@@ -1258,3 +1259,102 @@ def _cpu_tree(tree):
     from repro_torch.train import tree as tree_lib
 
     return tree_lib.tree_map(lambda t: t.cpu(), tree)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_moe_dispatch_on_card_matches_dense(cuda, arch, monkeypatch):
+    """REDUCED (f32), TF32 off: one MoE layer's dispatch (whole, and in
+    token chunks of 7 with experts in groups of 3) against the dense path
+    on the card and against the dispatch on the CPU, rtol / atol 1e-5; no
+    kernel launched."""
+    from repro_torch import configs
+    from repro_torch.models import moe, transformer
+
+    cfg = configs.get_reduced(arch)
+    model = transformer.LMModel.build(cfg, device=cuda)
+    layer = {k: v[0] for k, v in model.tree()["moe_blocks"]["mlp"].items()}
+    x = torch.as_tensor(np.random.default_rng(4).normal(size=(3, 21, cfg.d_model)),
+                        dtype=torch.float32, device=cuda)
+    _build.reset_launches()
+    outs = []
+    for chunk, group in ((moe.MOE_CHUNK_TOKENS, moe.EXPERT_GROUP), (7, 3)):
+        monkeypatch.setattr(moe, "MOE_CHUNK_TOKENS", chunk)
+        monkeypatch.setattr(moe, "EXPERT_GROUP", group)
+        with torch.inference_mode():
+            probs = moe.router_probs(x, layer["router"], cfg)
+            top_w, top_i = moe.topk_weights(probs, cfg)
+            out = moe.moe_ffn_dispatch(x, top_w, top_i, layer, cfg)
+            dense = moe.moe_ffn_dense(x, probs, layer, cfg)
+            cpu_layer = {k: v.cpu() for k, v in layer.items()}
+            cpu = moe.moe_ffn_dispatch(x.cpu(), top_w.cpu(), top_i.cpu(), cpu_layer, cfg)
+        np.testing.assert_allclose(out.cpu().numpy(), dense.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), rtol=1e-5, atol=1e-5)
+        outs.append(out)
+    np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+
+
+def test_mla_absorbed_decode_on_card_equals_naive(cuda):
+    """deepseek-v3 REDUCED (f32), TF32 off: a 12-token prefill, then 6
+    decode steps fed the same tokens through two caches, naive and
+    absorbed: every step's logits equal, and equal the full forward's,
+    rtol / atol 1e-4; the two latent caches equal at 1e-5."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train.train_step import make_prefill_step
+
+    cfg = configs.get_reduced("deepseek-v3-671b")
+    model = transformer.LMModel.build(cfg, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 18)),
+                           device=cuda)
+    prefill = make_prefill_step(cfg, max_len=18)
+    logits = {}
+    caches = {}
+    for absorb in (False, True):
+        _, cache = prefill(model, toks[:, :12])
+        with torch.inference_mode():
+            logits[absorb] = torch.cat([transformer.lm_decode_step(
+                model, cache, toks[:, t:t + 1], t, cfg, mla_absorb=absorb)[0]
+                for t in range(12, 18)], 1)
+        caches[absorb] = cache
+    with torch.inference_mode():
+        full = model(toks)[:, 12:]
+    for absorb in (False, True):
+        np.testing.assert_allclose(logits[absorb].cpu().numpy(), full.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(logits[True].cpu().numpy(), logits[False].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    for stack in caches[False]:
+        for name, a in caches[False][stack].items():
+            np.testing.assert_allclose(caches[True][stack][name].cpu().numpy(),
+                                       a.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """REDUCED (f32), TF32 off: 3 AdamW(3e-4) steps of the ``lm`` family on
+    the card and on the CPU from the same weights and batches; losses rtol
+    1e-5; no kernel launched."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = configs.get_reduced(arch)
+    opt = opt_lib.adamw(3e-4)
+    step = make_train_step(cfg, "lm", opt)
+    p_gpu = transformer.LMModel.build(cfg, device=cuda).tree()
+    p_cpu = _cpu_tree(p_gpu)
+    s_gpu, s_cpu = opt.init(p_gpu), opt.init(p_cpu)
+    rng = np.random.default_rng(6)
+    _build.reset_launches()
+    for _ in range(3):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 16)))
+        p_gpu, s_gpu, m_gpu = step(p_gpu, s_gpu, {"tokens": toks.to(cuda)})
+        p_cpu, s_cpu, m_cpu = step(p_cpu, s_cpu, {"tokens": toks})
+        assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())

@@ -61,6 +61,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.dist.compression, repro_torch.launch.train\n"
         "import repro_torch.models.transformer, repro_torch.models.gnn, "
         "repro_torch.models.sampler, repro_torch.models.attention, "
+        "repro_torch.models.moe, repro_torch.configs.deepseek_v3_671b, "
         "repro_torch.models.layers, repro_torch.configs.smollm_135m, "
         "repro_torch.configs.gcn_cora, repro_torch.configs.infinity_search\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -1,16 +1,21 @@
 """Port parity: LM serving (``models/layers``, ``models/attention``,
-``models/transformer``, ``make_prefill_step`` / ``make_decode_step``,
-``convert.lm_params_from_jax``, ``data/tokens.TokenStream``) and the config
-registry against the JAX package, on the CPU.
+``models/moe``, ``models/transformer``, ``make_prefill_step`` /
+``make_decode_step``, ``convert.lm_params_from_jax``,
+``data/tokens.TokenStream``) and the config registry against the JAX
+package, on the CPU.
 
 The same numpy inputs go to both: JAX's ``init_params`` weights converted
-for the port (nothing transposed), tokens from numpy.  JAX's side of the
-forward / prefill / decode comparisons is computed once per architecture
-(its decode steps jitted).  Tolerances: logits, caches and layer outputs
-rtol 1e-5 / atol 1e-5 (the same f32 products, summed in another order by
-the two frameworks' matmuls; the chunked path's online softmax in the same
-order of chunks); the smollm case at published widths rtol 1e-5 / atol
-1e-5 as well; token streams, samplers and parameter counts equal.
+for the port (nothing transposed; the MoE and MLA trees and deepseek-v3's
+``mtp`` included), tokens from numpy.  JAX's side of the forward / prefill
+/ decode comparisons is computed once per architecture (its decode steps
+jitted; deepseek-v3's for both MLA decodes).  All five archs at
+``REDUCED`` (f32).  Tolerances: logits, caches and layer outputs rtol
+1e-5 / atol 1e-5 (the same f32 products, summed in another order by the
+two frameworks' matmuls; the chunked path's online softmax in the same
+order of chunks; the MoE dispatch adds each token's k expert outputs in
+another order than JAX's dense sum over all experts); the smollm case at
+published widths rtol 1e-5 / atol 1e-5 as well; greedy tokens, token
+streams, samplers and parameter counts equal.
 """
 import dataclasses
 
@@ -53,13 +58,15 @@ def _tokens(seed, vocab, b=B, s=S):
     return np.random.default_rng(seed).integers(0, vocab, size=(b, s)).astype(np.int32)
 
 
-def _reference(jcfg, jp, toks, steps=DECODE):
-    """JAX's forward logits, prefill (last logits, cache of S + steps) and
-    ``steps`` greedy decode steps (logits per step, the final cache)."""
-    logits, _, _ = jtf.lm_forward(jp, jnp.asarray(toks), jcfg)
+def _reference(jcfg, jp, toks, steps=DECODE, mla_absorb=False):
+    """JAX's forward logits and aux loss, prefill (last logits, cache of S
+    + steps) and ``steps`` greedy decode steps (logits per step, the final
+    cache)."""
+    logits, _, aux = jtf.lm_forward(jp, jnp.asarray(toks), jcfg)
     last, cache = jtf.lm_prefill(jp, jnp.asarray(toks), jcfg, max_len=toks.shape[1] + steps)
     prefill = (np.asarray(last), jax.tree_util.tree_map(np.asarray, cache))
-    decode = jax.jit(lambda p, c, t, pos: jtf.lm_decode_step(p, c, t, pos, jcfg))
+    decode = jax.jit(lambda p, c, t, pos: jtf.lm_decode_step(p, c, t, pos, jcfg,
+                                                             mla_absorb=mla_absorb))
     tok = jnp.argmax(last[:, -1], -1).astype(jnp.int32)
     feed, steps_out = [], []
     for t in range(steps):
@@ -67,67 +74,83 @@ def _reference(jcfg, jp, toks, steps=DECODE):
         lg, cache = decode(jp, cache, tok[:, None], jnp.int32(toks.shape[1] + t))
         steps_out.append(np.asarray(lg))
         tok = jnp.argmax(lg[:, -1], -1).astype(jnp.int32)
-    return {"logits": np.asarray(logits), "prefill": prefill, "feed": feed,
-            "decode": steps_out, "cache": jax.tree_util.tree_map(np.asarray, cache)}
+    return {"logits": np.asarray(logits), "aux": float(aux), "prefill": prefill,
+            "feed": feed, "decode": steps_out,
+            "cache": jax.tree_util.tree_map(np.asarray, cache)}
+
+
+def _leaves(tree):
+    """(stack/name, array) of a cache tree, sorted."""
+    return [(f"{a}/{b}", tree[a][b]) for a in sorted(tree) for b in sorted(tree[a])]
+
+
+def _same_caches(got, want):
+    assert [k for k, _ in _leaves(got)] == [k for k, _ in _leaves(want)]
+    for (name, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        assert tuple(a.shape) == b.shape, name
+        _close(a, b, name)
 
 
 @pytest.fixture(scope="module")
-def dense():
-    """arch -> (port model, tokens, JAX's reference), computed once."""
+def models():
+    """arch -> (port model, tokens, JAX's reference), computed once
+    (deepseek-v3 also under "deepseek-v3-671b/absorb": JAX's absorbed
+    decode)."""
     out = {}
-    for i, arch in enumerate(DENSE):
+    for i, arch in enumerate(LM_ARCHS):
         jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
         jp = jparams.init_params(jax.random.PRNGKey(i), jtf.lm_decls(jcfg))
         model = convert.lm_params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tcfg,
                                            device="cpu")
         toks = _tokens(10 + i, jcfg.vocab_size)
         out[arch] = (model, toks, _reference(jcfg, jp, toks))
+        if tcfg.attention == "mla":
+            out[arch + "/absorb"] = (model, toks, _reference(jcfg, jp, toks,
+                                                             mla_absorb=True))
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_lm_forward_matches_jax(dense, arch):
-    model, toks, ref = dense[arch]
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_forward_matches_jax(models, arch):
+    model, toks, ref = models[arch]
     with torch.no_grad():
         logits, h, aux = ttf.lm_forward(model, torch.as_tensor(toks), model.cfg)
     _close(logits, ref["logits"])
-    assert h.shape == (B, S, model.cfg.d_model) and float(aux) == 0.0
+    assert h.shape == (B, S, model.cfg.d_model)
+    assert float(aux) == pytest.approx(ref["aux"], rel=RTOL)
+    assert (float(aux) > 0) == model.cfg.moe
     with torch.no_grad():
         assert torch.equal(model(torch.as_tensor(toks)), logits)
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_lm_prefill_and_padded_cache_match_jax(dense, arch):
-    model, toks, ref = dense[arch]
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_prefill_and_padded_cache_match_jax(models, arch):
+    model, toks, ref = models[arch]
     last, cache = tsteps.make_prefill_step(model.cfg, max_len=S + DECODE)(
         model, torch.as_tensor(toks))
     _close(last, ref["prefill"][0])
-    for name in ("k", "v"):
-        got = cache["dense"][name]
-        assert got.shape == ref["prefill"][1]["dense"][name].shape
-        _close(got, ref["prefill"][1]["dense"][name], name)
+    _same_caches(cache, ref["prefill"][1])
+    for _, got in _leaves(cache):
         assert not got[:, :, S:].any()  # the padding is zeros
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_lm_decode_steps_match_jax(dense, arch):
+def _decode_matches(models, key, mla_absorb):
     """8 decode steps through the cache, each fed JAX's greedy token: the
     logits of every step and the final cache; ``make_decode_step``'s
     greedy tokens are JAX's."""
-    model, toks, ref = dense[arch]
+    model, toks, ref = models[key]
     _, cache = tsteps.make_prefill_step(model.cfg, max_len=S + DECODE)(
         model, torch.as_tensor(toks))
-    decode = tsteps.make_decode_step(model.cfg)
+    decode = tsteps.make_decode_step(model.cfg, mla_absorb=mla_absorb)
     for t in range(DECODE):
         with torch.inference_mode():
             lg, _ = ttf.lm_decode_step(model, cache, torch.tensor(ref["feed"][t][:, None]),
-                                       S + t, model.cfg)
+                                       S + t, model.cfg, mla_absorb=mla_absorb)
         _close(lg, ref["decode"][t], f"step {t}")
         nxt = np.argmax(ref["decode"][t][:, -1], -1)
         if t + 1 < DECODE:
             np.testing.assert_array_equal(nxt, ref["feed"][t + 1])
-    for name in ("k", "v"):
-        _close(cache["dense"][name], ref["cache"]["dense"][name], name)
+    _same_caches(cache, ref["cache"])
     # the greedy step from a fresh prefill gives JAX's tokens
     _, cache = tsteps.make_prefill_step(model.cfg, max_len=S + DECODE)(
         model, torch.as_tensor(toks))
@@ -138,15 +161,30 @@ def test_lm_decode_steps_match_jax(dense, arch):
         np.testing.assert_array_equal(tok.numpy(), ref["feed"][t + 1])
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_generate_is_prefill_then_greedy_decode(dense, arch):
-    model, toks, ref = dense[arch]
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_decode_steps_match_jax(models, arch):
+    _decode_matches(models, arch, mla_absorb=False)
+
+
+def test_mla_absorbed_decode_matches_jax(models):
+    """deepseek-v3's decode with ``mla_absorb=True`` (W_uk folded into the
+    query, W_uv into the output) against JAX's absorbed decode."""
+    _decode_matches(models, "deepseek-v3-671b/absorb", mla_absorb=True)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_generate_is_prefill_then_greedy_decode(models, arch):
+    model, toks, ref = models[arch]
     out = model.generate(torch.as_tensor(toks), DECODE - 1)
     assert out.shape == (B, DECODE) and out.dtype == torch.int32
     np.testing.assert_array_equal(out.numpy(), np.stack(ref["feed"], axis=1))
+    if model.cfg.attention == "mla":
+        _, _, ref = models[arch + "/absorb"]
+        out = model.generate(torch.as_tensor(toks), DECODE - 1, mla_absorb=True)
+        np.testing.assert_array_equal(out.numpy(), np.stack(ref["feed"], axis=1))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_chunked_attention_matches_jax_chunked(arch, monkeypatch):
     """CHUNK_THRESHOLD / CHUNK_SIZE at 16 / 8 in both packages: a 32-token
     forward and prefill take the online-softmax path (4 chunks)."""
@@ -169,7 +207,7 @@ def test_chunked_attention_matches_jax_chunked(arch, monkeypatch):
     jlast, jcache = jtf.lm_prefill(jp, jnp.asarray(toks), jcfg, max_len=40)
     last, cache = tsteps.make_prefill_step(tcfg, max_len=40)(model, torch.as_tensor(toks))
     _close(last, jlast)
-    _close(cache["dense"]["k"], jcache["dense"]["k"])
+    _same_caches(cache, jax.tree_util.tree_map(np.asarray, jcache))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -247,21 +285,6 @@ def test_param_counts_match_jax(arch):
         want = [(".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path),
                  p.shape) for path, p in flat]
         assert [(path, p.shape) for path, p in tparams.leaves(td)] == want
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
-def test_moe_and_mla_archs_raise_naming_the_roadmap_item(arch):
-    cfg = tconfigs.get_reduced(arch)
-    model = ttf.LMModel.build(cfg, device="cpu")
-    toks = torch.as_tensor(_tokens(0, cfg.vocab_size, s=4))
-    kind = "MoE" if cfg.moe else "MLA"
-    for call in (lambda: ttf.lm_forward(model, toks, cfg),
-                 lambda: ttf.lm_prefill(model, toks, cfg),
-                 lambda: ttf.init_cache(cfg, 2, 8, device="cpu"),
-                 lambda: ttf.lm_decode_step(model, {}, toks[:, :1], 0, cfg)):
-        with pytest.raises(KeyError, match=f"{kind} layers come with MoE and MLA serving "
-                                           r"\(ROADMAP Queue 1, item 3b\)"):
-            call()
 
 
 @pytest.mark.parametrize("vocab,seq,batch,hosts", [(512, 16, 4, 1), (49152, 64, 8, 2),
@@ -388,3 +411,21 @@ def test_configs_equal_jax(arch):
         cfg = tconfigs.get(arch)
         assert cfg.act_dtype() == getattr(torch, cfg.dtype)
         assert cfg.pdtype() == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_converter_carries_the_moe_mla_and_mtp_trees(arch):
+    """``convert.lm_params_from_jax`` on the MoE trees (router, stacked
+    experts, the shared expert) and MLA's (deepseek-v3, with its ``mtp``
+    projection and block): every leaf under JAX's path, equal."""
+    jcfg, tcfg = jconfigs.get_reduced(arch), tconfigs.get_reduced(arch)
+    jp = jax.tree_util.tree_map(np.asarray, jparams.init_params(
+        jax.random.PRNGKey(4), jtf.lm_decls(jcfg)))
+    model = convert.lm_params_from_jax(jp, tcfg, device="cpu")
+    got = dict(model.named_parameters())
+    want = {".".join(str(k.key) for k in path): a
+            for path, a in jax.tree_util.tree_flatten_with_path(jp)[0]}
+    assert sorted(got) == sorted(want)
+    assert ("mtp.proj" in got) == tcfg.mtp and ("moe_blocks.mlp.router" in got)
+    for name, a in want.items():
+        assert torch.equal(got[name].detach(), torch.tensor(a)), name

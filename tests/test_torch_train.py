@@ -1,8 +1,8 @@
 """Port parity: recsys training (``train/optimizer``, ``dist/compression``,
 ``train/train_step.make_train_step``, ``convert.opt_state_from_jax`` /
 ``opt_state_to_jax``, the chunked CIN of the serve step and the launcher
-``repro_torch.launch.train``) against the JAX package, on the CPU at the
-``REDUCED`` configs.
+``repro_torch.launch.train``, whose default arch is an LM's) against the
+JAX package, on the CPU at the ``REDUCED`` configs.
 
 The same numpy inputs go to both: JAX's ``init_params`` weights and
 optimizer state converted for the port, ``recsys_batch`` batches, numpy
@@ -203,9 +203,8 @@ def test_train_step_refuses_inference_params_and_unported_families():
     b = {k: torch.as_tensor(v) for k, v in jrecsys_batch(0, 8, tcfg.vocabs).items()}
     with pytest.raises(ValueError, match="inference_mode"):
         step(frozen, opt.init(tp), b)
-    for family, item in (("lm", r"LM training \(ROADMAP Queue 1, item 3c\)"),):
-        with pytest.raises(KeyError, match=item):
-            tsteps.make_train_step(tcfg, family, opt)
+    with pytest.raises(KeyError, match="nope"):
+        tsteps.make_train_step(tcfg, "nope", opt)
     with pytest.raises(ValueError, match="grad_compression"):
         tsteps.make_train_step(tcfg, "recsys", opt, grad_compression="fp8")
 
@@ -275,8 +274,10 @@ def test_launcher_cli_trains_checkpoints_and_resumes(tmp_path):
     assert again.returncode == 0, again.stderr
     assert again.stdout.splitlines()[0] == "resumed from step 10"
     assert again.stdout.splitlines()[-2].startswith("step 11: loss=")
-    lm = _launch("--steps", "1", "--device", "cpu", cwd=tmp_path)
-    assert lm.returncode != 0 and "LM training" in lm.stderr
+    lm = _launch("--steps", "1", "--device", "cpu", "--ckpt-every", "0", "--ckpt-dir",
+                 str(tmp_path / "lm"), cwd=tmp_path)  # the default arch, smollm-135m
+    assert lm.returncode == 0, lm.stderr
+    assert lm.stdout.splitlines()[0].startswith("step 0: loss=")
 
 
 def test_launcher_build_matches_the_jax_loop_shape():
@@ -296,8 +297,13 @@ def test_launcher_build_matches_the_jax_loop_shape():
         tparams_, tstate, m = step(tparams_, tstate, tb(t % 2))
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    with pytest.raises(KeyError, match="LM training"):
-        ttrain.build("smollm-135m", device="cpu")
+    # the LM archs build as JAX's: the same tree and TokenStream batches
+    jparams_, jstate, _, jb = jtrain.build("smollm-135m", seq_len=16, batch=4)
+    tparams_, tstate, _, tb = ttrain.build("smollm-135m", seq_len=16, batch=4, device="cpu")
+    want = ["/".join(str(k) for k in p) for p, _ in
+            jax.tree_util.tree_flatten_with_path((jparams_, jstate))[0]]
+    assert [k for k, _ in tree_lib.paths((tparams_, tstate))] == want
+    np.testing.assert_array_equal(tb(2)["tokens"].numpy(), np.asarray(jb(2)["tokens"]))
 
 
 def _scripted_step(calls):
