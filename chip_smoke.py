@@ -147,7 +147,9 @@ Phases, in order; any failure exits non-zero:
    equal to the one-shard brute's up to near ties, the count that differ
    printed; quantized, every rank's distance at most the one-shard quantized
    answer's, since the shards' shortlists hold the one-shard shortlist, and
-   the reranked distances exact); ``ivf_flat`` and ``infinity`` (two
+   the reranked distances exact); brute f32 at S = 2 once more, built with
+   ``mesh=make_test_mesh((2,), ("data",))`` (window ``sharded brute f32
+   serve S=2 mesh``), its ids equal to the row without a mesh; ``ivf_flat`` and ``infinity`` (two
    ``IndexConfig()`` builds, one a shard) through ``SearchServer(shards=2)``;
    the same server over brute with shard 1 killed by chaos (every batch
    within its deadline, ``degraded``, ``shards_answered`` 1, the ids of a
@@ -241,6 +243,24 @@ Phases, in order; any failure exits non-zero:
    (``LM_TRAIN``; each layer checkpointed): 10 AdamW(3e-4) steps (p50 of
    the nine after the first, tokens/s, peak memory, the losses finite)
    and one ``microbatches=2`` step.
+
+14. Expert-parallel MoE serving on a mesh of ranks that share the card
+   (``phase_mesh``, after phase 13; no kernel lies on this path, so every
+   counter must read 0 in every window).  A ``mesh`` line: the meshes'
+   shapes, ranks and device, and ``torch.cuda.device_count()``.  Per MoE
+   arch at phase 13's depth cut: ``MESH_CHECKS`` — ``moe_ffn_ep`` (or
+   ``moe_ffn_ep_zero3``) on the MoE layer at published widths, f32, TF32
+   off, ``capacity_factor`` E / k so that nothing drops, against
+   ``moe_ffn_dispatch`` over 96 tokens, rtol / atol 1e-4 (deepseek-v3 2d on
+   (2, 4) and model on (3, 4), qwen3-moe fslice on (3, 4) and zero3 on
+   (2, 4)); then ``MESH_ROWS`` under ``lm_policy`` at the published
+   ``capacity_factor`` (``make_prefill_step(cfg, dctx)`` /
+   ``make_decode_step(cfg, dctx)``; decode prompts prefilled without the
+   mesh): each ``lm`` line prints ``ep`` (mode, ranks, E_loc, C, chunks,
+   slots assigned and dropped), p50 ms, tokens/s, peak memory and
+   ``one_device``, phase 13's row at the same shape where there is one.
+   Last, ``REDUCED`` under ``lm_policy`` on (2, 4), card against CPU
+   (prefill and decode steps, 1e-5).
 
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
@@ -2975,6 +2995,10 @@ def _sharded_brute(corpus_t, Qt, gt, gt_d) -> tuple[list[dict], dict]:
             launches_per_batch=counts["topk/f32"] / batches))
         windows[what] = counts
         del eng
+        if S == 2:
+            row, counts = _sharded_brute_mesh(corpus_t, Qt, gt_s, ids)
+            rows.append(row)
+            windows[row["what"]] = counts
 
         eng = index_lib.build("sharded", corpus_t, {"engine": "brute", "shards": S,
                                                     "quant": True}, device=DEVICE)
@@ -2997,6 +3021,29 @@ def _sharded_brute(corpus_t, Qt, gt, gt_d) -> tuple[list[dict], dict]:
             fail(f"{what}: {row}")
         del eng
     return rows, windows
+
+
+def _sharded_brute_mesh(corpus_t, Qt, gt_s, ids_plain) -> tuple[dict, dict]:
+    """Brute f32 at S = 2 built with ``mesh=make_test_mesh((2,), ("data",))``
+    (its ``dctx`` is ``search_policy`` of that mesh): the shards are still
+    searched in turn, so its ids must equal the row without a mesh."""
+    from repro_torch.core import index as index_lib
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh((2,), ("data",), device=DEVICE)
+    eng = index_lib.build("sharded", corpus_t, {"engine": "brute", "shards": 2,
+                                                "mesh": mesh}, device=DEVICE)
+    what = "sharded brute f32 serve S=2 mesh"
+    (times, ids, _, comps), counts = counted(
+        lambda: _serve_batches(lambda q: eng.search(q, k=K), Qt))
+    require(counts, {"topk/f32": 2 * SHARD_BATCHES}, what)
+    differ = int((ids != ids_plain).sum())
+    if differ or eng.dctx.mesh is not mesh:
+        fail(f"{what}: {differ} ids differ from the row without a mesh")
+    return _sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
+                        mesh={"shape": mesh.shape, "device": str(mesh.device)},
+                        ids_differing_from_no_mesh=differ,
+                        launches_per_batch=counts["topk/f32"] / SHARD_BATCHES), counts
 
 
 def _sharded_ivf_and_infinity(corpus, Qt, gt) -> tuple[list[dict], dict, object, object]:
@@ -4105,6 +4152,41 @@ def routed_experts(into: list):
         moe.moe_ffn_dispatch = inner
 
 
+@contextlib.contextmanager
+def slot_maps(into: list):
+    """While the block runs, append (top_i, eo, E_loc, C) of every
+    ``moe._slot_maps`` call (references: no copy, no sync) to ``into``:
+    one per rank and chunk under expert parallelism."""
+    from repro_torch.models import moe
+
+    inner = moe._slot_maps
+
+    def spy(top_i, top_w, eo, E_loc, C, T, k, dtype):
+        into.append((top_i, eo, E_loc, C))
+        return inner(top_i, top_w, eo, E_loc, C, T, k, dtype)
+
+    moe._slot_maps = spy
+    try:
+        yield into
+    finally:
+        moe._slot_maps = inner
+
+
+def _slot_counts(records: list, copies: float) -> dict:
+    """Assignments and capacity drops in ``slot_maps`` records, each
+    (token, expert) counted once: ``copies`` ranks hold each expert (fslice:
+    the data ranks of a model rank)."""
+    import torch
+
+    assigned = dropped = 0
+    for top_i, eo, E_loc, C in records:
+        lid = top_i.reshape(-1) - eo
+        loads = torch.bincount(lid[(lid >= 0) & (lid < E_loc)], minlength=E_loc)
+        assigned += int(loads.sum())
+        dropped += int((loads - C).clamp_min(0).sum())
+    return {"assigned": assigned / copies, "dropped": dropped / copies}
+
+
 def _touched(routed: list):
     """The mean number of distinct experts one dispatch reached (None
     where no MoE layer ran)."""
@@ -4157,6 +4239,9 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
     from repro_torch.models.transformer import greedy
     from repro_torch.train.train_step import make_decode_step, make_prefill_step
 
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch.mesh import make_test_mesh
+
     arch, row, shape, B, T, cuts = spec[:6]
     opts = spec[6] if len(spec) > 6 else {}
     absorb, prompt_len = opts.get("absorb", False), opts.get("prompt", LM_PROMPT)
@@ -4166,12 +4251,15 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
     out = {"arch": arch, "row": row, "shape": shape, "batch": B}
     if cfg.attention == "mla":
         out["mla_absorb"] = absorb
-    routed = []
+    mesh = make_test_mesh(opts["mesh"], device=dev) if "mesh" in opts else None
+    dctx = None if mesh is None else lm_policy(
+        cfg, mesh, kind="prefill" if row == "prefill" else "decode", batch=B)
+    routed, slots = [], []
     _peak_reset()
     if row == "prefill":
         toks = _lm_tokens(cfg, B, T, seed, dev)
-        prefill = make_prefill_step(cfg, max_len=T + LM_DECODE_STEPS)
-        with routed_experts(routed):
+        prefill = make_prefill_step(cfg, dctx, max_len=T + LM_DECODE_STEPS)
+        with routed_experts(routed), slot_maps(slots):
             (res, times), counts = counted(
                 lambda: _timed_calls(lambda: prefill(model, toks), LM_REPS, warmup=1))
         last, cache = res
@@ -4190,7 +4278,7 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
         out.update(seq=T, calls=len(times), p50_ms=p50 * 1e3, tokens_per_s=B * T / p50)
     else:
         prompt = _lm_tokens(cfg, B, prompt_len, seed, dev)
-        decode = make_decode_step(cfg, mla_absorb=absorb)
+        decode = make_decode_step(cfg, dctx, mla_absorb=absorb)
 
         def run():
             t0 = time.perf_counter()
@@ -4199,6 +4287,7 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
             routed.clear()  # the bound reads the decode steps' routing
+            slots.clear()
             toks, times = [tok], []
             for i in range(LM_DECODE_STEPS):
                 t0 = time.perf_counter()
@@ -4208,7 +4297,7 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
                 toks.append(tok)
             return torch.stack(toks, 1), times, prefill_s
 
-        with routed_experts(routed):
+        with routed_experts(routed), slot_maps(slots):
             (gen, times, prefill_s), counts = counted(run)
         if tuple(gen.shape) != (B, LM_DECODE_STEPS + 1) or not bool(
                 ((gen >= 0) & (gen < V)).all()):
@@ -4223,6 +4312,9 @@ def _lm_row(model, spec: tuple, seed: int, smi: str) -> dict:
     require(counts, {}, f"lm {arch} {row}")
     if touched is not None:
         out["touched_experts"] = touched
+    if mesh is not None:
+        out["ep"] = _ep_report(cfg, mesh, dctx, B, T if row == "prefill" else 1, slots,
+                               len(times) + (1 if row == "prefill" else 0), what=f"{arch} {row}")
     out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                bound_ms=bound["ms"], bound_by=bound["by"], bound_tflop=bound["ops"] / 1e12,
                bound_gb=bound["bytes"] / 1e9, reduced=cuts, launches=counts, device=smi)
@@ -4756,6 +4848,215 @@ def phase_moe(seed: int, smi: str) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: expert-parallel MoE serving on a mesh of ranks on the card
+# ---------------------------------------------------------------------------
+
+#: the EP checks at published widths (arch, mesh, moe_impl -> the mode it
+#: gives), f32, TF32 off, capacity_factor E / k so that nothing drops
+MESH_CHECKS = (("deepseek-v3-671b", (2, 4), "gathered", "2d"),
+               ("deepseek-v3-671b", (3, 4), "gathered", "model"),
+               ("qwen3-moe-235b-a22b", (3, 4), "gathered", "fslice"),
+               ("qwen3-moe-235b-a22b", (2, 4), "zero3", "zero3"))
+MESH_CHECK_SHAPE = (6, 16)  # (B, S): 96 tokens, B divisible by 2 and by 3
+MESH_REDUCED = ((2, 4), 2, 12, 4)  # REDUCED card against CPU: mesh, batch, prompt, steps
+MESH_REDUCED_TOL = 1e-5
+# MOE_ROWS-shaped, each with the mesh of its lm_policy; published capacity_factor
+MESH_ROWS = (
+    ("deepseek-v3-671b", "prefill", "prefill_32k", 2, 4096,
+     ["batch 2 of 32 (divisible by data = 2), 4096 of 32768 tokens"], {"mesh": (2, 4)}),
+    ("deepseek-v3-671b", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128", "the cache holds a 4096-token prompt, prefilled one sequence at "
+      "a time without the mesh"], {"mesh": (2, 4), "absorb": True, "group": 1}),
+    ("qwen3-moe-235b-a22b", "prefill", "prefill_32k", 4, 4096,
+     ["batch 4 of 32", "4096 tokens of 32768"], {"mesh": (2, 4)}),
+    ("qwen3-moe-235b-a22b", "decode", "decode_32k", 32, 32768,
+     ["batch 32 of 128", "the cache holds a 4096-token prompt, prefilled 4 sequences at "
+      "a time without the mesh"], {"mesh": (2, 4), "group": 4}),
+    ("qwen3-moe-235b-a22b", "prefill", "prefill_32k", 3, 4096,
+     ["batch 3 of 32 (divisible by data = 3)", "4096 tokens of 32768"], {"mesh": (3, 4)}),
+)
+
+
+def _ep_report(cfg, mesh, dctx, B: int, S: int, slots: list, calls: int, what: str) -> dict:
+    """The expert-parallel numbers of a row under ``dctx``: its plan
+    (``moe.ep_plan``), and the slots assigned and dropped over the row's
+    ``calls`` (from the ``slot_maps`` records, one per rank, chunk, MoE
+    layer and call, which must all be there)."""
+    from repro_torch.models import moe
+
+    if not dctx.batch_axes:
+        fail(f"lm {what}: the batch {B} does not split over {mesh.shape}: no EP")
+    plan = moe.ep_plan(cfg, mesh, dctx.batch_axes, B, S)
+    want = plan.ranks * plan.chunks * cfg.num_moe_layers * calls
+    if len(slots) != want:
+        fail(f"lm {what}: {len(slots)} rank dispatches, want {want}")
+    copies = plan.ranks * plan.E_loc / cfg.num_experts
+    counts = _slot_counts(slots, copies)
+    return {"ep_mode": plan.mode, "mesh": mesh.shape, "ranks": plan.ranks,
+            "E_loc": plan.E_loc, "C": plan.C, "chunks": plan.chunks, "T_g": plan.T_g,
+            "psum_axes": list(plan.psum_axes), "calls": calls,
+            "slots_assigned": counts["assigned"], "dropped_slots": counts["dropped"],
+            "dropped_share": counts["dropped"] / max(counts["assigned"], 1)}
+
+
+def _mesh_check(model, mesh_shape, impl: str, mode: str, seed: int, smi: str) -> dict:
+    """``moe_ffn_ep`` (or ``moe_ffn_ep_zero3``) on the model's MoE layer at
+    published widths, f32, capacity_factor E / k, against
+    ``moe_ffn_dispatch`` on the same tokens, LM_RTOL / LM_ATOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device(DEVICE)
+    base = model.cfg
+    cfg = dataclasses.replace(base, dtype="float32",
+                              capacity_factor=base.num_experts / base.num_experts_per_tok)
+    mesh = make_test_mesh(mesh_shape, device=dev)
+    layer = tf._layer(model["moe_blocks"], 0)["mlp"]
+    B, S = MESH_CHECK_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    fn = moe.moe_ffn_ep_zero3 if impl == "zero3" else moe.moe_ffn_ep
+    slots = []
+    with torch.inference_mode():
+        probs = moe.router_probs(x, layer["router"], cfg)
+        top_w, top_i = moe.topk_weights(probs, cfg)
+        want = moe.moe_ffn_dispatch(x, top_w, top_i, layer, cfg)
+        t0 = time.perf_counter()
+        with slot_maps(slots):
+            got = fn(x, probs, layer, cfg, mesh=mesh, batch_axes=("data",))
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t0
+    got_mode = "zero3" if impl == "zero3" else moe.ep_mode(cfg, mesh)
+    E_loc = cfg.num_experts // (mesh.size if got_mode == "2d" else mesh.shape["model"])
+    # zero3 dispatches each rank's own tokens: every (token, expert) once
+    copies = 1 if impl == "zero3" else mesh.size * E_loc / cfg.num_experts
+    counts = _slot_counts(slots, copies)
+    err, ok, ratio = _within(got, want)
+    out = {"arch": base.name, "check": "expert-parallel against moe_ffn_dispatch",
+           "mesh": mesh.shape, "ep_mode": got_mode, "want_mode": mode, "E_loc": E_loc,
+           "tokens": B * S, "capacity_factor": cfg.capacity_factor,
+           "dropped_slots": counts["dropped"], "slots_assigned": counts["assigned"],
+           "rank_dispatches": len(slots), "ep_seconds": ep_s, "max_abs_err": err, "ok": ok,
+           "of_tolerance": ratio, "rtol": LM_RTOL, "atol": LM_ATOL,
+           "on_card": got.device.type == dev.type, "device": smi}
+    if not ok or got_mode != mode or counts["dropped"] or not out["on_card"] \
+            or counts["assigned"] != B * S * cfg.num_experts_per_tok:
+        fail(f"mesh check {json.dumps(out)}")
+    return out
+
+
+def _mesh_reduced(arch: str, seed: int, smi: str) -> dict:
+    """``REDUCED`` (f32) under ``lm_policy`` on MESH_REDUCED's mesh (its MoE
+    layers expert-parallel, slots dropping at the published capacity), the
+    same weights and tokens on the card and the CPU: prefill and decode
+    steps fed the same tokens (MLA absorbed), MESH_REDUCED_TOL."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as tree_lib
+
+    dev, host = torch.device(DEVICE), torch.device("cpu")
+    shape, B, Pn, n = MESH_REDUCED
+    cfg = configs.get_reduced(arch)
+    gpu = tf.LMModel.build(cfg, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    cpu = tf.LMModel(cfg, tree_lib.tree_map(lambda t: t.cpu(), gpu.tree()))
+    toks = _lm_tokens(cfg, B, Pn + n, seed + 5, host)
+    absorb = cfg.attention == "mla"
+    outs = {}
+    for model, d in ((gpu, dev), (cpu, host)):
+        mesh = make_test_mesh(shape, device=d)
+        pre, dec = (lm_policy(cfg, mesh, kind=k, batch=B) for k in ("prefill", "decode"))
+        t = toks.to(d)
+        with torch.inference_mode():
+            last, cache = tf.lm_prefill(model, t[:, :Pn], cfg, pre, max_len=Pn + n)
+            steps = torch.cat([tf.lm_decode_step(model, cache, t[:, i:i + 1], i, cfg, dec,
+                                                 mla_absorb=absorb)[0]
+                               for i in range(Pn, Pn + n)], 1)
+        outs[d.type] = {"prefill": last, "decode": steps}
+    out = {"arch": arch, "check": "REDUCED under lm_policy, card against CPU",
+           "mesh": list(shape), "ep_mode": moe.ep_mode(cfg, mesh), "batch": B}
+    oks = []
+    for key, a in outs[dev.type].items():
+        err, ok = close_matmul(a.cpu(), outs["cpu"][key], rtol=MESH_REDUCED_TOL,
+                               atol=MESH_REDUCED_TOL)
+        out[key] = {"max_abs_err": err, "ok": ok}
+        oks.append(ok)
+    out.update(tol=MESH_REDUCED_TOL, device=smi)
+    if not all(oks):
+        fail(f"mesh REDUCED {json.dumps(out)}")
+    return out
+
+
+def _one_device(moe_lines: list, row: dict):
+    """Phase 13's row at the same (arch, row, batch, length, MLA branch)."""
+    keys = ("arch", "row", "batch", "seq", "cache_T", "mla_absorb")
+    for line in moe_lines:
+        if "p50_ms" in line and all(line.get(k) == row.get(k) for k in keys):
+            return {k: line[k] for k in ("p50_ms", "tokens_per_s", "peak_gb")}
+    return None
+
+
+def phase_mesh(seed: int, smi: str, moe_lines: list) -> list[dict]:
+    """Phase 14: the port's mesh (ranks sharing the card) and the
+    expert-parallel MoE at published widths.  Per MoE arch (phase 13's
+    depth cut): the EP checks (``MESH_CHECKS``), then ``MESH_ROWS`` under
+    ``lm_policy``, beside phase 13's one-device row where one has the same
+    shape; then the ``REDUCED`` card-against-CPU check.  Every window must
+    launch no kernel.  Returns the ``mesh`` and ``lm`` lines."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t0 = time.perf_counter()
+    shapes = sorted({m for _, m, _, _ in MESH_CHECKS} | {r[6]["mesh"] for r in MESH_ROWS})
+    meshes = [make_test_mesh(m, device=DEVICE) for m in shapes]
+    line = {"mesh": [{"shape": m.shape, "ranks": m.size, "device": str(m.device)}
+                     for m in meshes],
+            "ranks_share_one_device": True,
+            "cuda_device_count": torch.cuda.device_count(), "device": smi}
+    log("mesh " + json.dumps(line))
+    lines = [line]
+    for arch, (_, depth) in MOE_DEPTH.items():
+        model = _moe_model(arch, seed)
+        for c_arch, shape, impl, mode in MESH_CHECKS:
+            if c_arch == arch:
+                check, counts = counted(
+                    lambda: _mesh_check(model, shape, impl, mode, seed, smi))
+                require(counts, {}, f"mesh check {arch} {shape} {impl}")
+                check.update(depth=depth, launches=counts)
+                lines.append(check)
+                log("mesh " + json.dumps(check))
+        for spec in MESH_ROWS:
+            if spec[0] == arch:
+                row = _lm_row(model, spec, seed, smi)
+                row["reduced"] = [depth] + row["reduced"]
+                row["one_device"] = _one_device(moe_lines, row)
+                lines.append(row)
+                log("lm " + json.dumps(row))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in MOE_DEPTH:
+        red, counts = counted(lambda: _mesh_reduced(arch, seed, smi))
+        require(counts, {}, f"mesh REDUCED {arch}")
+        red["launches"] = counts
+        lines.append(red)
+        log("mesh " + json.dumps(red))
+    log(f"phase 14 seconds {time.perf_counter() - t0:.3f}")
+    return lines
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4802,7 +5103,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_models(args.seed, env["nvidia_smi"])
-    phase_moe(args.seed, env["nvidia_smi"])
+    moe_lines = phase_moe(args.seed, env["nvidia_smi"])
+    phase_mesh(args.seed, env["nvidia_smi"], moe_lines)
     rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],

@@ -34,6 +34,7 @@ from repro_torch.core import chaos as chaos_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import telemetry as telem
 from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.dist.sharding import Mesh, search_policy
 
 
 class SearchResult(NamedTuple):
@@ -330,6 +331,7 @@ class ShardedIndex:
     static: dict
     shard_size: int
     n: int
+    dctx: Any = None  # dist.sharding.DistCtx over a ("data",) mesh on the device
     search_defaults: dict = dataclasses.field(default_factory=dict)
     attrs: Any = None  # core/attrs store, placed over the shard rows
     quant: Any = None  # core/quant store, placed over the shard rows
@@ -346,22 +348,26 @@ class ShardedIndex:
         cfg = dict(cfg or {})
         engine = cfg.pop("engine", "brute")
         shards = int(cfg.pop("shards", 2))
-        if cfg.pop("mesh", None) is not None:
-            raise TypeError("sharded: the port holds every shard on one device; "
-                            "it takes no mesh")
+        mesh = cfg.pop("mesh", None)
         engine_cfg = cfg.pop("engine_cfg", None)
         if engine_cfg is None:
             engine_cfg = cfg  # remaining keys configure the inner engine
         elif cfg:
             raise TypeError(f"sharded: pass engine keys via engine_cfg OR inline, "
                             f"not both: {sorted(cfg)}")
-        return cls.build(X, engine=engine, shards=shards, engine_cfg=engine_cfg,
+        return cls.build(X, engine=engine, shards=shards, mesh=mesh, engine_cfg=engine_cfg,
                          device=device)
 
     @classmethod
-    def build(cls, X, *, engine: str = "brute", shards: int = 2,
+    def build(cls, X, *, engine: str = "brute", shards: int = 2, mesh=None,
               engine_cfg: Optional[Mapping[str, Any]] = None,
               device: DeviceLike = None) -> "ShardedIndex":
+        """``mesh``: a ``dist/sharding.Mesh`` whose ``data`` axis holds the
+        shards (default: one of ``shards`` ranks on the device); the
+        corpus goes to its device unless ``device`` is given.  The shards
+        are searched in turn either way."""
+        if mesh is not None and device is None:
+            device = mesh.device
         X = torch.as_tensor(X, dtype=torch.float32, device=resolve_device(device))
         n = X.shape[0]
         shards = int(shards)
@@ -370,6 +376,12 @@ class ShardedIndex:
         engine_cls = get_index(engine)
         if not hasattr(engine_cls, "shard_state"):
             raise TypeError(f"engine {engine!r} does not support sharding (no shard_state)")
+        if mesh is None:
+            mesh = Mesh((shards,), ("data",), X.device)
+        if mesh.shape.get("data", 1) != shards:
+            raise ValueError(f"mesh data axis {mesh.shape} != shards {shards}")
+        if mesh.device != X.device:
+            raise ValueError(f"mesh on {mesh.device}, corpus on {X.device}")
         shard_size = n // shards
         states, statics = [], []
         for s in range(shards):
@@ -382,7 +394,7 @@ class ShardedIndex:
         static = merge(statics) if merge is not None else default_merge_shard_static(statics)
         return cls(engine=engine, engine_cls=engine_cls,
                    stacked=_stack_shard_states(states, X.device), static=static,
-                   shard_size=shard_size, n=n)
+                   shard_size=shard_size, n=n, dctx=search_policy(mesh))
 
     @property
     def shards(self) -> int:
@@ -554,7 +566,8 @@ class ShardedIndex:
         dev = resolve_device(device)
         engine = statics["engine"]
         stacked = _tree_map(lambda x: torch.as_tensor(x).to(dev), arrays["stacked"])
+        n, shard_size = int(statics["n"]), int(statics["shard_size"])
         return cls(engine=engine, engine_cls=get_index(engine), stacked=stacked,
-                   static=dict(statics["static"]), shard_size=int(statics["shard_size"]),
-                   n=int(statics["n"]),
+                   static=dict(statics["static"]), shard_size=shard_size, n=n,
+                   dctx=search_policy(Mesh((n // shard_size,), ("data",), dev)),
                    search_defaults=dict(statics.get("search_defaults") or {}))

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve`` (``SearchServer`` and its CLI)."""
+"""Entry points of the port: ``serve`` (``SearchServer`` and its CLI),
+``train`` and ``mesh`` (the mesh builders)."""

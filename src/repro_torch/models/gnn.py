@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import DistCtx, act
 from repro_torch.models import params as params_lib
 from repro_torch.models.params import Param
 
@@ -57,6 +58,7 @@ def gcn_conv(
     n_nodes: int,
     norm: str = "sym",
     aggregator: str = "mean",
+    dctx: Optional[DistCtx] = None,
 ) -> torch.Tensor:
     src, dst = edges[0].long(), edges[1].long()
     valid = (src >= 0) & (dst >= 0)
@@ -83,6 +85,7 @@ def gcn_forward(
     x: torch.Tensor,
     edges: torch.Tensor,
     cfg: GNNConfig,
+    dctx: Optional[DistCtx] = None,
     *,
     train: bool = False,
     generator: Optional[torch.Generator] = None,
@@ -91,11 +94,12 @@ def gcn_forward(
     Dropout runs only in training and only when a ``generator`` is given
     (JAX's: only with an rng; its train step passes none)."""
     n = x.shape[0]
+    edges = act(dctx, edges, None, "edges")
     h = x
     layers = params["layers"]
     for i, layer in enumerate(layers):
         h = gcn_conv(h, edges, layer["w"], layer["b"], n_nodes=n, norm=cfg.norm,
-                     aggregator=cfg.aggregator)
+                     aggregator=cfg.aggregator, dctx=dctx)
         if i < len(layers) - 1:
             h = torch.relu(h)
             if train and cfg.dropout > 0 and generator is not None:
@@ -106,12 +110,12 @@ def gcn_forward(
 
 
 def gcn_loss(
-    params: PyTree, batch: dict, cfg: GNNConfig, *,
+    params: PyTree, batch: dict, cfg: GNNConfig, dctx: Optional[DistCtx] = None, *,
     generator: Optional[torch.Generator] = None,
 ) -> tuple[torch.Tensor, dict]:
     """batch: x (n, d), edges (2, E), labels (n,), optional label_mask (n,).
     The masked mean NLL and the masked accuracy."""
-    logits = gcn_forward(params, batch["x"], batch["edges"], cfg,
+    logits = gcn_forward(params, batch["x"], batch["edges"], cfg, dctx,
                          train=generator is not None, generator=generator)
     labels = batch["labels"].long()
     mask = batch.get("label_mask")

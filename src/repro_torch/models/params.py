@@ -5,7 +5,8 @@ records: shape, logical axis names and initializer.  ``init_params``
 materialises the tree with an explicit ``torch.Generator`` on the device;
 ``param_count`` / ``param_bytes`` read the declarations alone;
 ``TreeModule`` holds a materialised tree as an ``nn.Module``.  The
-abstract (dry-run) and sharding views wait for the port's ``dist/``.
+sharding view is ``dist/sharding.DistCtx.shard_w``; the abstract
+(dry-run) view waits for the port's ``launch/dryrun``.
 
 The two frameworks draw different numbers from one seed: parity tests
 initialise in JAX and load the weights (``convert.params_from_jax``).

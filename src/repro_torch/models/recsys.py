@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.embedlookup import embedding_lookup
+from repro_torch.dist.sharding import DistCtx, act
 from repro_torch.kernels.bag.ops import embedding_bag
 from repro_torch.models import params as params_lib
 from repro_torch.models.params import Param
@@ -152,14 +153,15 @@ def _flat_ids(ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
     return ids.to(torch.int32) + field_offsets(cfg, ids.device)[None, :]
 
 
-def _embed_fields(params, ids: torch.Tensor, cfg: RecsysConfig):
+def _embed_fields(params, ids: torch.Tensor, cfg: RecsysConfig,
+                  dctx: Optional[DistCtx] = None):
     """ids (B, F) per-field -> (emb (B, F, D), first-order term (B,)).
 
     ``emb`` is the plain per-field gather; the first-order term is
     ``sum_f linear[id_f]`` by the embedding bag (JAX returns the (B, F)
     gather and sums it in ``recsys_forward``)."""
     flat = _flat_ids(ids, cfg)
-    emb = embedding_lookup(params["table"], flat)
+    emb = embedding_lookup(params["table"], flat, dctx)
     first = embedding_bag(params["linear"], flat, combine="sum")[:, 0]
     return emb, first
 
@@ -223,9 +225,12 @@ def _autoint(params_list, emb: torch.Tensor) -> torch.Tensor:
 # forward / loss / serving
 # ---------------------------------------------------------------------------
 
-def recsys_forward(params: PyTree, ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+def recsys_forward(params: PyTree, ids: torch.Tensor, cfg: RecsysConfig,
+                   dctx: Optional[DistCtx] = None) -> torch.Tensor:
     """ids (B, F) -> logits (B,)."""
-    emb, first = _embed_fields(params, ids, cfg)
+    ids = act(dctx, ids, "batch", "fields")
+    emb, first = _embed_fields(params, ids, cfg, dctx)
+    emb = act(dctx, emb, "batch", "fields", "edim")
     logit = first + params["bias"][0]
 
     if cfg.interaction == "fm2":  # pure FM (Rendle)
@@ -244,9 +249,10 @@ def recsys_forward(params: PyTree, ids: torch.Tensor, cfg: RecsysConfig) -> torc
     raise ValueError(cfg.interaction)
 
 
-def recsys_loss(params: PyTree, batch: dict, cfg: RecsysConfig) -> tuple[torch.Tensor, dict]:
+def recsys_loss(params: PyTree, batch: dict, cfg: RecsysConfig,
+                dctx: Optional[DistCtx] = None) -> tuple[torch.Tensor, dict]:
     """Binary cross-entropy CTR loss. batch: ids (B, F), labels (B,)."""
-    logits = recsys_forward(params, batch["ids"], cfg)
+    logits = recsys_forward(params, batch["ids"], cfg, dctx)
     y = batch["labels"].to(torch.float32)
     ll = F.logsigmoid(logits)
     lnl = F.logsigmoid(-logits)
@@ -255,7 +261,8 @@ def recsys_loss(params: PyTree, batch: dict, cfg: RecsysConfig) -> tuple[torch.T
     return loss, {"loss": loss, "acc": auc_proxy}
 
 
-def user_embedding(params: PyTree, ids: torch.Tensor, cfg: RecsysConfig) -> torch.Tensor:
+def user_embedding(params: PyTree, ids: torch.Tensor, cfg: RecsysConfig,
+                   dctx: Optional[DistCtx] = None) -> torch.Tensor:
     """Pooled query-side embedding for retrieval: the sum of the field
     embeddings, by the embedding bag.  ids (B, F) -> (B, D)."""
     return embedding_bag(params["table"], _flat_ids(ids, cfg), combine="sum")
@@ -266,11 +273,13 @@ def retrieval_score(
     cand: torch.Tensor,  # (N, D)
     *,
     k: int = 100,
+    dctx: Optional[DistCtx] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k candidates by inner product -> (scores (B, k), ids (B, k)
     int32), highest first.  ``lax.top_k``'s tie rule — equal scores to the
     lowest index — by a stable descending sort of each row (``torch.topk``
     breaks ties otherwise)."""
+    cand = act(dctx, cand, "cand", None)
     scores = user @ cand.T
     top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
     return top_s[:, :k], top_i[:, :k].to(torch.int32)

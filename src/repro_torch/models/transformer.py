@@ -9,18 +9,23 @@ its layers, each a view of the stacked leaves; MoE models with leading
 dense layers (deepseek-v3) run the dense stack, then the MoE stack.  The
 decode cache is JAX's too: ``{"dense": ..., "moe": ...}``, each {"k",
 "v"} of (L, B, T, KV, Dh) (MLA: {"ckv", "krope"} of (L, B, T, kv_lora) /
-(L, B, T, rope)) in the activation dtype.  Where ``cfg.remat`` is set and
+(L, B, T, rope)) in the activation dtype.  Under a ``DistCtx`` (``dctx``,
+``dist/sharding.lm_policy``) a MoE layer whose batch splits over the
+mesh's batch axes runs JAX's expert-parallel path (``moe.moe_ffn_ep``, or
+``moe_ffn_ep_zero3`` where the policy says ``moe_impl="zero3"``);
+``act`` marks JAX's layout constraints, which move nothing on the port's
+one-device mesh.  Where ``cfg.remat`` is set and
 gradients flow, each layer runs under ``torch.utils.checkpoint``
 (``jax.checkpoint``'s role): its activations are recomputed in the
 backward pass, and no value changes.
 
 Public entry points:
   lm_decls(cfg)                              — Param declarations
-  lm_forward(params, tokens, cfg)            — (B,S) -> (logits, h, aux)
-  lm_loss(params, batch, cfg)                — next-token CE + MoE aux + MTP
-  init_cache(cfg, batch, max_len, device=)   — zeroed decode cache
-  lm_prefill(params, tokens, cfg, max_len=)  -> (last logits, cache)
-  lm_decode_step(params, cache, tokens, pos, cfg, mla_absorb=)
+  lm_forward(params, tokens, cfg, dctx)      — (B,S) -> (logits, h, aux)
+  lm_loss(params, batch, cfg, dctx)          — next-token CE + MoE aux + MTP
+  init_cache(cfg, batch, max_len, dctx, device=)  — zeroed decode cache
+  lm_prefill(params, tokens, cfg, dctx, max_len=) -> (last logits, cache)
+  lm_decode_step(params, cache, tokens, pos, cfg, dctx, mla_absorb=)
                                              -> (logits, cache)
 """
 from __future__ import annotations
@@ -33,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import DistCtx, act
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import params as params_lib
 from repro_torch.models.attention import gqa_attention, mla_attention
@@ -144,40 +150,67 @@ def _layer(blocks, i: int):
     return {key: _layer(blocks[key], i) for key in blocks.keys()}
 
 
-def _attn_call(p, x, positions, cfg, cache=None, cache_index=None, mla_absorb=False):
+def _attn_call(p, x, positions, cfg, dctx, cache=None, cache_index=None,
+               mla_absorb=False):
+    x = act(dctx, x, "batch", "attn_seq", "embed_act")
     if cfg.attention == "mla":
-        return mla_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index,
-                             absorb=mla_absorb)
-    return gqa_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index)
+        out, kv = mla_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index,
+                                absorb=mla_absorb)
+    else:
+        out, kv = gqa_attention(p, x, positions, cfg, cache=cache, cache_index=cache_index)
+    return act(dctx, out, "batch", "seq", "embed_act"), kv
 
 
-def _moe_ffn(p, x, cfg):
-    """Routed experts (+ the shared expert).  Returns (out, aux loss): the
-    routing of JAX's ``_moe_ffn`` without a mesh, computed by dispatch
-    (``moe.moe_ffn_dispatch``) where JAX computes every expert."""
+def _moe_ffn(p, x, cfg, dctx=None):
+    """Routed experts (+ the shared expert).  Returns (out, aux loss).
+    JAX's test: under a mesh whose model axis divides the experts and
+    whose batch axes split the batch, the expert-parallel path (fed the
+    probabilities in the activation dtype); otherwise the routing of JAX's
+    dense path, computed by dispatch (``moe.moe_ffn_dispatch``) where JAX
+    computes every expert."""
     probs = moe_lib.router_probs(x, p["router"], cfg)
     top_w, top_i = moe_lib.topk_weights(probs, cfg)
     aux = moe_lib.load_balance_loss(probs, top_i, cfg)
-    out = moe_lib.moe_ffn_dispatch(x, top_w, top_i, p, cfg)
+    batch_axes = dctx.batch_axes if dctx is not None else ()
+    B = x.shape[0]
+    shards = 1
+    if dctx is not None:
+        for a in batch_axes:
+            shards *= dctx.mesh.shape[a]
+    use_ep = (
+        dctx is not None
+        and "model" in dctx.mesh.shape
+        and cfg.num_experts % dctx.mesh.shape["model"] == 0
+        and B % shards == 0
+        and batch_axes
+    )
+    if use_ep:
+        impl = dctx.opt("moe_impl", "gathered")
+        fn = moe_lib.moe_ffn_ep_zero3 if impl == "zero3" else moe_lib.moe_ffn_ep
+        out = fn(x, probs.to(x.dtype), p, cfg, mesh=dctx.mesh, batch_axes=batch_axes)
+    else:
+        out = moe_lib.moe_ffn_dispatch(x, top_w, top_i, p, cfg)
     if cfg.num_shared_experts:
         out = out + glu_mlp(x, p["shared_wg"], p["shared_wu"], p["shared_wd"],
                             activation=cfg.activation)
-    return out, aux
+    return act(dctx, out, "batch", "seq", "embed_act"), aux
 
 
-def _block(p, h, positions, cfg, *, moe=False, cache=None, cache_index=None,
+def _block(p, h, positions, cfg, dctx=None, *, moe=False, cache=None, cache_index=None,
            mla_absorb=False):
     """One layer.  Returns (h, this layer's K/V or cache, MoE aux loss)."""
     hn = rms_norm(h, p["attn_norm"], eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
-    attn_out, kv = _attn_call(p["attn"], hn, positions, cfg, cache=cache,
+    attn_out, kv = _attn_call(p["attn"], hn, positions, cfg, dctx, cache=cache,
                               cache_index=cache_index, mla_absorb=mla_absorb)
     h = h + attn_out
     hn = rms_norm(h, p["mlp_norm"], eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
     mlp = p["mlp"]
     if moe:
-        ffn_out, aux = _moe_ffn(mlp, hn, cfg)
+        ffn_out, aux = _moe_ffn(mlp, hn, cfg, dctx)
     else:
-        ffn_out = glu_mlp(hn, mlp["wg"], mlp["wu"], mlp["wd"], activation=cfg.activation)
+        ffn_out = act(dctx, glu_mlp(hn, mlp["wg"], mlp["wu"], mlp["wd"],
+                                    activation=cfg.activation),
+                      "batch", "seq", "embed_act")
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + ffn_out, kv, aux
 
@@ -192,7 +225,7 @@ def _stacks(cfg: LMConfig) -> list[tuple[str, str, bool, int]]:
     return out
 
 
-def _run_stack(blocks, h, positions, cfg, *, moe: bool, layers: int):
+def _run_stack(blocks, h, positions, cfg, dctx, *, moe: bool, layers: int):
     """The full forward of a stack (no cache): (h, the summed aux loss).
     With ``cfg.remat`` and gradients on, each layer is checkpointed."""
     remat = cfg.remat and torch.is_grad_enabled()
@@ -200,55 +233,57 @@ def _run_stack(blocks, h, positions, cfg, *, moe: bool, layers: int):
     for i in range(layers):
         p = _layer(blocks, i)
         if remat:
-            h, a = checkpoint(lambda p, h: _block(p, h, positions, cfg, moe=moe)[::2],
+            h, a = checkpoint(lambda p, h: _block(p, h, positions, cfg, dctx, moe=moe)[::2],
                               p, h, use_reentrant=False)
         else:
-            h, _, a = _block(p, h, positions, cfg, moe=moe)
+            h, _, a = _block(p, h, positions, cfg, dctx, moe=moe)
         aux = aux + a
     return h, aux
 
 
-def _embed(params, tokens, cfg):
+def _embed(params, tokens, cfg, dctx):
     h = params["embed"][tokens.long()].to(cfg.act_dtype())
     if cfg.gemma_norm:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
-    return h
+    return act(dctx, h, "batch", "seq", "embed_act")
 
 
-def _head(params, h, cfg):
+def _head(params, h, cfg, dctx):
     h = rms_norm(h, params["final_norm"], eps=cfg.norm_eps, gemma_style=cfg.gemma_norm)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return h @ w.to(h.dtype)
+    return act(dctx, h @ w.to(h.dtype), "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
 # forward / loss / prefill / decode
 # ---------------------------------------------------------------------------
 
-def lm_forward(params: PyTree, tokens: torch.Tensor, cfg: LMConfig
+def lm_forward(params: PyTree, tokens: torch.Tensor, cfg: LMConfig,
+               dctx: Optional[DistCtx] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full causal forward. Returns (logits, final_hidden, moe_aux_loss);
     the aux loss, summed over the MoE layers, is 0 without them."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, dctx)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for _, key, moe, layers in _stacks(cfg):
-        h, a = _run_stack(params[key], h, positions, cfg, moe=moe, layers=layers)
+        h, a = _run_stack(params[key], h, positions, cfg, dctx, moe=moe, layers=layers)
         if moe:
             aux = aux + a
-    return _head(params, h, cfg), h, aux
+    return _head(params, h, cfg, dctx), h, aux
 
 
-def lm_loss(params: PyTree, batch: dict, cfg: LMConfig, *, aux_weight: float = 0.01,
-            mtp_weight: float = 0.1) -> tuple[torch.Tensor, dict]:
+def lm_loss(params: PyTree, batch: dict, cfg: LMConfig, dctx: Optional[DistCtx] = None,
+            *, aux_weight: float = 0.01, mtp_weight: float = 0.1
+            ) -> tuple[torch.Tensor, dict]:
     """Next-token CE (the last position masked) + ``aux_weight`` times the
     MoE aux loss + (with ``cfg.mtp``) ``mtp_weight`` times the MTP CE: one
     dense block over ``proj`` of [h ; embed(next token)], through the
     shared head, predicting the token two ahead (the last two positions
     masked).  Returns (loss, {"ce", "moe_aux"[, "mtp_ce"], "loss"})."""
     tokens, mask = batch["tokens"], batch.get("mask")
-    logits, h, aux = lm_forward(params, tokens, cfg)
+    logits, h, aux = lm_forward(params, tokens, cfg, dctx)
     labels = F.pad(tokens[:, 1:], (0, 1))
     valid = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device) \
         if mask is None else mask.float()
@@ -260,9 +295,9 @@ def lm_loss(params: PyTree, batch: dict, cfg: LMConfig, *, aux_weight: float = 0
         emb_next = params["embed"][labels.long()].to(h.dtype)
         mtp_in = torch.cat([h, emb_next], dim=-1) @ params["mtp"]["proj"].to(h.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        hm, _ = _run_stack(params["mtp"]["block"], mtp_in, positions, cfg, moe=False,
+        hm, _ = _run_stack(params["mtp"]["block"], mtp_in, positions, cfg, dctx, moe=False,
                            layers=1)
-        logits2 = _head(params, hm, cfg)
+        logits2 = _head(params, hm, cfg, dctx)
         labels2 = F.pad(tokens[:, 2:], (0, 2))
         valid2 = torch.cat([valid[:, :-2], torch.zeros_like(valid[:, -2:])], dim=1)
         ce2 = softmax_cross_entropy(logits2, labels2, valid2)
@@ -281,54 +316,63 @@ def _cache_shapes(cfg: LMConfig, L: int, batch: int, max_len: int) -> dict:
     return {"k": shape, "v": shape}
 
 
-def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None) -> dict:
+#: the activation axes of each cache leaf (JAX's ``init_cache``)
+_CACHE_AXES = {"k": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+               "v": ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+               "ckv": ("layers", "batch", "kv_seq", "kv_lora"),
+               "krope": ("layers", "batch", "kv_seq", "rope")}
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, dctx: Optional[DistCtx] = None,
+               *, device: DeviceLike = None) -> dict:
     """Stacked per-layer decode caches, zeroed, in the activation dtype on
     ``device`` (default CUDA): per stack ("dense", "moe") {"k", "v"} (L, B,
     T, KV, Dh), or MLA's {"ckv" (L, B, T, kv_lora), "krope" (L, B, T,
     rope)}."""
     dev = resolve_device(device)
-    return {name: {key: torch.zeros(shape, dtype=cfg.act_dtype(), device=dev)
+    return {name: {key: act(dctx, torch.zeros(shape, dtype=cfg.act_dtype(), device=dev),
+                            *_CACHE_AXES[key])
                    for key, shape in _cache_shapes(cfg, layers, batch, max_len).items()}
             for name, _, _, layers in _stacks(cfg)}
 
 
 def lm_decode_step(params: PyTree, cache: dict, tokens: torch.Tensor, pos,
-                   cfg: LMConfig, *, mla_absorb: bool = False
-                   ) -> tuple[torch.Tensor, dict]:
+                   cfg: LMConfig, dctx: Optional[DistCtx] = None, *,
+                   mla_absorb: bool = False) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B, 1) int; ``pos`` the write index (an int
     or a 0-d tensor, every sequence at the same position).  The new K/V
     (MLA: latent and rope key) are written into ``cache`` in place; MLA
     attends naively or, with ``mla_absorb``, through the latent.  Returns
     (logits (B, 1, V), cache)."""
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, dctx)
     positions = torch.as_tensor(pos, device=h.device).reshape(-1)
     for name, key, moe, layers in _stacks(cfg):
         blocks, stack = params[key], cache[name]
         for i in range(layers):
-            h, _, _ = _block(_layer(blocks, i), h, positions, cfg, moe=moe,
+            h, _, _ = _block(_layer(blocks, i), h, positions, cfg, dctx, moe=moe,
                              cache={k: v[i] for k, v in stack.items()},
                              cache_index=positions[0], mla_absorb=mla_absorb)
-    return _head(params, h, cfg), cache
+    return _head(params, h, cfg, dctx), cache
 
 
-def lm_prefill(params: PyTree, tokens: torch.Tensor, cfg: LMConfig, *,
-               max_len: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+def lm_prefill(params: PyTree, tokens: torch.Tensor, cfg: LMConfig,
+               dctx: Optional[DistCtx] = None, *, max_len: Optional[int] = None
+               ) -> tuple[torch.Tensor, dict]:
     """Prefill: the full forward over the prompt.  Returns (the last
     token's logits (B, 1, V), the cache padded with zeros to ``max_len``
     positions, default S)."""
     B, S = tokens.shape
     T = max_len or S
     positions = torch.arange(S, device=tokens.device)
-    h = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, B, T, device=tokens.device)
+    h = _embed(params, tokens, cfg, dctx)
+    cache = init_cache(cfg, B, T, dctx, device=tokens.device)
     for name, key, moe, layers in _stacks(cfg):
         blocks, stack = params[key], cache[name]
         for i in range(layers):
-            h, kv, _ = _block(_layer(blocks, i), h, positions, cfg, moe=moe)
+            h, kv, _ = _block(_layer(blocks, i), h, positions, cfg, dctx, moe=moe)
             for k, v in kv.items():
                 stack[k][i, :, :S] = v
-    return _head(params, h[:, -1:, :], cfg), cache
+    return _head(params, h[:, -1:, :], cfg, dctx), cache
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

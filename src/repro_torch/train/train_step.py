@@ -14,7 +14,11 @@ top-k candidates (``retrieval_cand``); ``make_prefill_step`` /
 the cache; ``mla_absorb`` picks MLA's absorbed decode).  Serve steps take
 ``(params, ...)``, with ``params`` a model (``RecsysModel``, ``GCNModel``,
 ``LMModel``) or the same tree as a dict, and run under
-``torch.inference_mode``.
+``torch.inference_mode``.  Every factory takes JAX's ``dctx`` (a
+``dist/sharding.DistCtx``, after ``family`` / ``opt``) and hands it to the
+model: an LM's MoE layers then run expert-parallel over the mesh's ranks.
+The port's ``shard_map`` has no gradient yet, so an LM train step under a
+mesh whose batch takes the expert-parallel path raises.
 """
 from __future__ import annotations
 
@@ -44,9 +48,9 @@ def _loss_fn_for(family: str):
     raise KeyError(family)
 
 
-def value_and_grad(loss_fn: Callable, params: Tree, batch: dict, cfg) -> tuple:
+def value_and_grad(loss_fn: Callable, params: Tree, batch: dict, cfg, dctx=None) -> tuple:
     """(grads as ``params``' tree, metrics detached) of ``loss_fn(params,
-    batch, cfg) -> (loss, metrics)``.  The leaves are detached views that
+    batch, cfg, dctx) -> (loss, metrics)``.  The leaves are detached views that
     require grad (no copy); parameters made under ``inference_mode`` cannot
     be saved for backward and are refused."""
     flat, spec = tree_lib.flatten(params)
@@ -55,7 +59,7 @@ def value_and_grad(loss_fn: Callable, params: Tree, batch: dict, cfg) -> tuple:
                          "make them outside it")
     live = [p.detach().requires_grad_(True) for p in flat]
     with torch.enable_grad():
-        loss, metrics = loss_fn(tree_lib.unflatten(spec, live), batch, cfg)
+        loss, metrics = loss_fn(tree_lib.unflatten(spec, live), batch, cfg, dctx)
         grads = torch.autograd.grad(loss, live)
     return (tree_lib.unflatten(spec, list(grads)),
             {k: v.detach() for k, v in metrics.items()})
@@ -65,6 +69,7 @@ def make_train_step(
     cfg,
     family: str,
     opt: opt_lib.Optimizer,
+    dctx=None,
     *,
     microbatches: int = 1,
     grad_compression: Optional[str] = None,
@@ -81,7 +86,7 @@ def make_train_step(
 
     def compute_grads(params, batch):
         if microbatches <= 1:
-            return value_and_grad(loss_fn, params, batch, cfg)
+            return value_and_grad(loss_fn, params, batch, cfg, dctx)
 
         def split(x):
             b = x.shape[0]
@@ -97,7 +102,8 @@ def make_train_step(
         metrics = None
         for i in range(microbatches):
             grads, metrics = value_and_grad(loss_fn, params,
-                                            {k: v[i] for k, v in parts.items()}, cfg)
+                                            {k: v[i] for k, v in parts.items()}, cfg,
+                                            dctx)
             acc = tree_lib.tree_map(lambda a, g: a + g.to(a.dtype), acc, grads)
             del grads
         return tree_lib.tree_map(lambda g: g / microbatches, acc), metrics
@@ -112,36 +118,36 @@ def make_train_step(
     return train_step
 
 
-def make_serve_step(cfg, family: str) -> Callable:
+def make_serve_step(cfg, family: str, dctx=None) -> Callable:
     """Forward-only scoring step: recsys ``serve(params, {"ids": (B, F)})``
     -> click probabilities (B,); gnn ``serve(params, {"x": (n, d),
     "edges": (2, E)})`` -> logits (n, num_classes)."""
     if family == "recsys":
         def serve(params, batch):
             with torch.inference_mode():
-                return torch.sigmoid(recsys_forward(params, batch["ids"], cfg))
+                return torch.sigmoid(recsys_forward(params, batch["ids"], cfg, dctx))
     elif family == "gnn":
         def serve(params, batch):
             with torch.inference_mode():
-                return gcn_forward(params, batch["x"], batch["edges"], cfg)
+                return gcn_forward(params, batch["x"], batch["edges"], cfg, dctx)
     else:
         raise KeyError(f"no serve step for family {family!r}")
     return serve
 
 
-def make_retrieval_step(cfg, *, k: int = 100) -> Callable:
+def make_retrieval_step(cfg, dctx=None, *, k: int = 100) -> Callable:
     """recsys retrieval_cand: ``retrieve(params, {"ids": (B, F),
     "candidates": (N, D)})`` -> (scores (B, k), ids (B, k))."""
 
     def retrieve(params, batch):
         with torch.inference_mode():
-            u = user_embedding(params, batch["ids"], cfg)
-            return retrieval_score(u, batch["candidates"], k=k)
+            u = user_embedding(params, batch["ids"], cfg, dctx)
+            return retrieval_score(u, batch["candidates"], k=k, dctx=dctx)
 
     return retrieve
 
 
-def make_decode_step(cfg, *, mla_absorb: bool = False) -> Callable:
+def make_decode_step(cfg, dctx=None, *, mla_absorb: bool = False) -> Callable:
     """LM decode: ``decode(params, cache, tokens (B, 1), pos) ->
     (next tokens (B,) int32, cache)``, one greedy token for every sequence
     in the batch, the cache written in place; MLA models attend naively or,
@@ -149,19 +155,19 @@ def make_decode_step(cfg, *, mla_absorb: bool = False) -> Callable:
 
     def decode(params, cache, tokens, pos):
         with torch.inference_mode():
-            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg,
+            logits, cache = lm_decode_step(params, cache, tokens, pos, cfg, dctx,
                                            mla_absorb=mla_absorb)
             return greedy(logits), cache
 
     return decode
 
 
-def make_prefill_step(cfg, *, max_len: Optional[int] = None) -> Callable:
+def make_prefill_step(cfg, dctx=None, *, max_len: Optional[int] = None) -> Callable:
     """LM prefill: ``prefill(params, tokens (B, S)) -> (last logits (B, 1,
     V), cache padded to max_len)``."""
 
     def prefill(params, tokens):
         with torch.inference_mode():
-            return lm_prefill(params, tokens, cfg, max_len=max_len)
+            return lm_prefill(params, tokens, cfg, dctx, max_len=max_len)
 
     return prefill

@@ -1297,6 +1297,81 @@ def test_moe_dispatch_on_card_matches_dense(cuda, arch, monkeypatch):
     assert not any(_build.launches().values())
 
 
+#: mode -> (num_experts, moe_d_ff, impl): on a (2, 4) mesh, E = 8 gives 2d,
+#: E = 4 fslice, E = 4 with an odd moe_d_ff model
+EP_MODES = {"2d": (8, 64, "gathered"), "fslice": (4, 64, "gathered"),
+            "model": (4, 63, "gathered"), "zero3": (8, 64, "zero3")}
+
+
+@pytest.mark.parametrize("cf", [1.25, 8.0])
+@pytest.mark.parametrize("mode", list(EP_MODES))
+def test_moe_ep_on_card_matches_cpu(cuda, mode, cf):
+    """The expert-parallel MoE on a (2, 4) mesh of ranks on the card
+    against the same mesh on the CPU (REDUCED qwen3-moe widths, f32, TF32
+    off), rtol / atol 1e-5, at capacity 1.25 (slots drop) and 8.0; the
+    ranks' expert ids and drops are the same on both (no tie in f32
+    probabilities drawn from normals); no kernel launched."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+
+    E, f, impl = EP_MODES[mode]
+    cfg = dataclasses.replace(configs.get_reduced("qwen3-moe-235b-a22b"), num_experts=E,
+                              moe_d_ff=f, capacity_factor=cf)
+    rng = np.random.default_rng(5)
+    d = cfg.d_model
+    host = {"x": rng.normal(size=(4, 16, d)),
+            "probs": torch.softmax(torch.as_tensor(rng.normal(size=(4, 16, E))), -1).numpy(),
+            "wg": rng.normal(size=(E, d, f)) * 0.05, "wu": rng.normal(size=(E, d, f)) * 0.05,
+            "wd": rng.normal(size=(E, f, d)) * 0.05}
+    fn = moe.moe_ffn_ep_zero3 if impl == "zero3" else moe.moe_ffn_ep
+    _build.reset_launches()
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in host.items()}
+        mesh = make_test_mesh((2, 4), device=dev)
+        with torch.inference_mode():
+            outs.append(fn(t["x"], t["probs"], t, cfg, mesh=mesh, batch_axes=("data",)))
+    assert outs[0].device.type == "cuda"
+    np.testing.assert_allclose(outs[0].cpu().numpy(), outs[1].numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_lm_under_lm_policy_on_card_matches_cpu(cuda, arch):
+    """REDUCED (f32), TF32 off, ``lm_policy`` on a (2, 4) mesh (its MoE
+    layers expert-parallel, 2d): prefill and 3 decode steps on the card
+    against the CPU, rtol / atol 1e-5; no kernel launched."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+
+    cfg = configs.get_reduced(arch)
+    gpu = transformer.LMModel.build(cfg, device=cuda)
+    cpu = transformer.LMModel(cfg, _cpu_tree(gpu.tree()))
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 15))
+    absorb = cfg.attention == "mla"
+    _build.reset_launches()
+    outs = []
+    for model, dev in ((gpu, cuda), (cpu, torch.device("cpu"))):
+        mesh = make_test_mesh((2, 4), device=dev)
+        pre, dec = (lm_policy(cfg, mesh, kind=k, batch=2) for k in ("prefill", "decode"))
+        t = torch.as_tensor(toks, device=dev)
+        with torch.inference_mode():
+            last, cache = transformer.lm_prefill(model, t[:, :12], cfg, pre, max_len=15)
+            steps = [transformer.lm_decode_step(model, cache, t[:, i:i + 1], i, cfg, dec,
+                                                mla_absorb=absorb)[0] for i in range(12, 15)]
+        outs.append((last, torch.cat(steps, 1)))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+
+
 def test_mla_absorbed_decode_on_card_equals_naive(cuda):
     """deepseek-v3 REDUCED (f32), TF32 off: a 12-token prefill, then 6
     decode steps fed the same tokens through two caches, naive and
