@@ -262,6 +262,28 @@ Phases, in order; any failure exits non-zero:
    Last, ``REDUCED`` under ``lm_policy`` on (2, 4), card against CPU
    (prefill and decode steps, 1e-5).
 
+15. Cells built by ``launch/cells.build`` and materialised on the card
+   (``phase_cells``, after phase 14).  qwen3-moe-235b-a22b ``train_4k`` at
+   published widths (``CELL_TRAIN``: cut in depth and in batch and
+   sequence; ``LM_TRAIN_OPTS``: bf16 parameters, Adafactor) on a (2, 4) mesh
+   of ranks under ``lm_policy(kind="train")``, its MoE layer through the EP
+   ``shard_map`` with gradients: first the loss and every gradient with the
+   mesh against one device (the weights' f32 twin, f32 activations,
+   capacity E / k; loss rtol 1e-5, gradients rtol 1e-4 / atol 1e-5 of each
+   leaf's largest), then timed steps at microbatches 1
+   and 2 (``cells`` lines: p50 ms, tokens/s, peak memory, ``ep_mode``).
+   deepseek-v3-671b's cell at phase 13's depth cut is reckoned by the
+   port's dry-run and left out when over the card.  deepseek-coder-33b's
+   ``prefill_32k`` and ``decode_32k`` cells cut in depth (bf16 weights,
+   batches cut), each first held against its f32 twin (LM_RTOL / LM_ATOL),
+   then timed.  ``gcn-cora`` ``full_graph_sm`` train stepped twice; DeepFM's
+   ``serve_p99`` and ``train_batch`` cells, counted windows (the bag once a
+   call, its backward once a step) whose kernel rows hold the bag and
+   ``bag_backward`` at the cells' ids bit for bit to their plain versions.
+   Last, ``launch/dryrun.run_cell`` on smollm-135m ``train_4k``, qwen3-moe
+   ``decode_32k`` and DeepFM ``train_batch`` over the production (16, 16)
+   mesh of meta ranks (``dryrun`` lines, analytic: no card reading).
+
 Last, the qpath kernel on the sweep operands the windows ran, recorded
 in each window (the full-width build and the bench-config q=inf build in
 minmax, the bench-config q=2 build, the infinity retrieval and the
@@ -5057,6 +5079,531 @@ def phase_mesh(seed: int, smi: str, moe_lines: list) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: cells built by launch/cells, materialised on the card
+# ---------------------------------------------------------------------------
+
+CELL_MESH = (2, 4)
+# (arch, shape, LMConfig cuts, batch, sequence, the cuts as read)
+CELL_TRAIN = ("qwen3-moe-235b-a22b", "train_4k", {"num_layers": 1}, 8, 512,
+              ["1 of 94 layers (phase 13 keeps 2: with bf16 gradients, the updated "
+               "parameters and Adafactor's f32 temporaries of the (L, 128, 4096, 1536) "
+               "expert leaves, the port's dry-run of the 2-layer cell on a (2, 4) meta "
+               "mesh reckons 79.3 GB on one card)",
+               "batch 8 of 256, 512 of 4096 tokens"])
+CELL_TRAIN_STEPS = 3  # timed steps a microbatch setting, after one warm-up
+CELL_CHECK = (2, 64)  # (B, S) of the mesh-against-one-device gradient check
+CELL_LOSS_RTOL = 1e-5  # f32: the loss with the mesh and without
+# f32 gradients: the ranks' partial sums are added in another order
+CELL_GRAD_RTOL = 1e-4
+CELL_GRAD_ATOL = 1e-5  # of the leaf's largest |gradient|
+CELL_LEFT_OUT = ("deepseek-v3-671b", "train_4k", {"num_layers": 2, "first_dense_layers": 1})
+CELL_SERVE_ARCH = ("deepseek-coder-33b", {"num_layers": 4},
+                   "4 of 62 layers (bf16 weights 5.2 GB, its f32 twin 10.4 GB)")
+# (shape, batch, sequence or cache length, the cuts of the shape)
+CELL_SERVE = (("prefill_32k", 1, 32768, ["batch 1 of 32"]),
+              ("decode_32k", 32, 32768, ["batch 32 of 128",
+                                         "the cache zeroed, not prefilled (a step reads "
+                                         "every position either way)"]))
+CELL_SERVE_REPS = 3  # timed prefill calls, after one warm-up
+CELL_DECODE_STEPS = 8  # decode steps; the first is the warm-up
+CELL_SERVE_CHECK = (2, 64)  # (B, S) of the f32 checks
+CELL_GNN = ("gcn-cora", "full_graph_sm")
+CELL_RECSYS = ("deepfm", "serve_p99", "train_batch")
+CELL_RECSYS_REPS = 20  # timed serve calls, after two warm-ups
+CELL_DRYRUN = (("smollm-135m", "train_4k"), ("qwen3-moe-235b-a22b", "decode_32k"),
+               ("deepfm", "train_batch"))
+
+
+def _cell_train(seed: int, smi: str) -> list[dict]:
+    """``CELL_TRAIN`` built by ``launch/cells.build`` on a (2, 4) mesh of
+    ranks on the card (``lm_policy(kind="train")``: its MoE layer through
+    the EP ``shard_map`` with gradients), ``LM_TRAIN_OPTS`` (bf16
+    parameters, Adafactor), materialised from ``seed``.  First the check:
+    the loss and every gradient with the mesh against the same without it
+    (the one-device dispatch), on the cell's weights in f32 (their f32
+    twin: bf16 gradients would round, and their bf16 index accumulation
+    round again), f32 activations and capacity E / k so that nothing drops
+    (loss CELL_LOSS_RTOL, gradients CELL_GRAD_RTOL / CELL_GRAD_ATOL); then CELL_TRAIN_STEPS timed steps at
+    microbatches 1 and 2 at the published capacity, each a counted window
+    that must launch no kernel (no kernel lies on this path)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.train_step import value_and_grad
+
+    arch, shape, cut, B, S, cuts = CELL_TRAIN
+    dev = torch.device(DEVICE)
+    mesh = make_test_mesh(CELL_MESH, device=dev)
+    built = {mb: cells.build(arch, shape, mesh, overrides={"microbatches": mb},
+                             reduce_cfg=cut, batch=B, seq_len=S) for mb in (1, 2)}
+    cfg = built[1].cfg
+    g = torch.Generator(device=dev).manual_seed(seed)
+    _peak_reset()
+    t0 = time.perf_counter()
+    params, state, batch = built[1].materialize(dev, g)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lines = []
+
+    # the check
+    cfg_c = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    twin = tree_lib.tree_map(lambda t: t.float(), params)
+    Bc, Sc = CELL_CHECK
+    dctx_c = lm_policy(cfg_c, mesh, kind="train", batch=Bc)
+    if not tf.moe_takes_ep(cfg_c, dctx_c, Bc):
+        fail(f"cells {arch}: the check's batch {Bc} takes no EP path on {mesh.shape}")
+    toks = {"tokens": _lm_tokens(cfg, Bc, Sc, seed + 6, dev)}
+
+    def grads():
+        return (value_and_grad(tf.lm_loss, twin, toks, cfg_c, dctx_c),
+                value_and_grad(tf.lm_loss, twin, toks, cfg_c, None))
+
+    ((g_mesh, m_mesh), (g_one, m_one)), counts = counted(grads)
+    require(counts, {}, f"cells {arch} check")
+    loss_m, loss_o = float(m_mesh["loss"]), float(m_one["loss"])
+    worst, differ, total, ok = 0.0, 0, 0, abs(loss_m - loss_o) <= CELL_LOSS_RTOL * abs(loss_o)
+    for (path, a), b in zip(tree_lib.paths(g_mesh), tree_lib.leaves(g_one)):
+        tol = CELL_GRAD_RTOL * b.abs() + CELL_GRAD_ATOL * float(b.abs().max())
+        diff = (a - b).abs()
+        worst = max(worst, float(diff.max()))
+        differ += int((diff > 0).sum())
+        total += b.numel()
+        if not bool((diff <= tol).all()) or not bool(torch.isfinite(a).all()):
+            ok = False
+            log(f"cells {arch} check: gradient {path} off by {float(diff.max())}")
+    check = {"cell": f"{arch} {shape}", "check": "loss and gradients on the (2, 4) mesh "
+             "against one device", "batch": Bc, "seq": Sc, "activations": "float32",
+             "param_dtype": "float32 (the bf16 weights' values)",
+             "capacity_factor": cfg_c.capacity_factor,
+             "ep_mode": moe.ep_plan(cfg_c, mesh, dctx_c.batch_axes, Bc, Sc).mode,
+             "loss_mesh": loss_m, "loss_one_device": loss_o, "loss_rtol": CELL_LOSS_RTOL,
+             "grad_max_abs_err": worst, "grad_elements_differing": differ,
+             "grad_elements": total, "grad_rtol": CELL_GRAD_RTOL,
+             "grad_atol_of_max": CELL_GRAD_ATOL, "ok": ok, "launches": counts, "device": smi}
+    log("cells " + json.dumps(check))
+    if not ok:
+        fail(f"cells {arch} check: {json.dumps(check)}")
+    lines.append(check)
+    del g_mesh, g_one, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the timed steps, microbatches 1 then 2; ``carry`` holds the only
+    # reference to the newest (params, state), so two trees live at most
+    carry = [params, state]
+    del params, state
+    for mb in (1, 2):
+        cell = built[mb]
+        if cell.meta["microbatches"] != mb:
+            fail(f"cells {arch}: asked for {mb} microbatches, the cell runs "
+                 f"{cell.meta['microbatches']}")
+        plan = moe.ep_plan(cfg, mesh, cell.dctx.batch_axes, B // mb, S)
+        _peak_reset()
+
+        def run():
+            losses, times = [], []
+            for _ in range(CELL_TRAIN_STEPS + 1):
+                t0 = time.perf_counter()
+                carry[0], carry[1], m = cell.step(carry[0], carry[1], batch)
+                losses.append(float(m["loss"]))  # waits for the step
+                times.append(time.perf_counter() - t0)
+            return losses, times
+
+        (losses, times), counts = counted(run)
+        require(counts, {}, f"cells {arch} {shape} mb={mb}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"cells {arch} {shape} mb={mb}: losses {losses}")
+        p50 = float(np.median(times[1:]))
+        row = {"cell": f"{arch} {shape}", "row": "train", "mesh": mesh.shape,
+               "microbatches": mb, "batch": B, "seq": S, "optimizer": "adafactor",
+               "param_dtype": cfg.param_dtype, "ep_mode": plan.mode, "E_loc": plan.E_loc,
+               "C": plan.C, "chunks": plan.chunks, "steps": CELL_TRAIN_STEPS,
+               "p50_ms": p50 * 1e3, "first_step_ms": times[0] * 1e3,
+               "tokens_per_s": B * S / p50, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "init_seconds": init_s, "reduced": cuts,
+               "launches": counts, "device": smi}
+        log("cells " + json.dumps(row))
+        lines.append(row)
+    del carry, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+def _cell_left_out() -> dict:
+    """``CELL_LEFT_OUT``: the bytes one card would hold for the cut cell's
+    train step, reckoned by the port's dry-run (its (2, 4) mesh of meta
+    ranks: the arguments, then the peak of the step's live bytes); left
+    out when over the card.  Analytic: no card reading."""
+    import torch
+
+    from repro_torch.dist import roofline
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_meta_mesh
+    from repro_torch.train import tree as tree_lib
+
+    arch, shape, cut = CELL_LEFT_OUT
+    B, S = CELL_TRAIN[3], CELL_TRAIN[4]
+    cell = cells.build(arch, shape, make_meta_mesh(shape=CELL_MESH), reduce_cfg=cut,
+                       batch=B, seq_len=S)
+    args = sum(t.nbytes for t in tree_lib.leaves(cell.args) if hasattr(t, "nbytes"))
+    with roofline.OpCounter() as counter:
+        cell.step(*cell.args)
+    card = torch.cuda.get_device_properties(DEVICE).total_memory
+    out = {"cell": f"{arch} {shape}", "row": "train", "analytic": True,
+           "source": "the port's dry-run on meta tensors, no card reading",
+           "cut": cut, "batch": B, "seq": S, "param_dtype": cell.cfg.param_dtype,
+           "argument_gb": args / 1e9, "step_peak_gb": counter.peak_bytes / 1e9,
+           "reckoned_gb": (args + counter.peak_bytes) / 1e9, "card_gb": card / 1e9}
+    out["left_out"] = out["reckoned_gb"] > out["card_gb"]
+    out["why"] = ("bf16 parameters and gradients, the updated parameters and Adafactor's "
+                  "f32 temporaries of a (1, 256, 7168, 2048) expert leaf do not fit one "
+                  "card" if out["left_out"] else "fits")
+    return out
+
+
+def _lm_serve_check(cfg, params, seed: int) -> dict:
+    """The cell's weights (bf16) with f32 activations against their f32
+    twin (f32 weights, f32 activations) on the card, a prefill and one
+    decode step at CELL_SERVE_CHECK, LM_RTOL / LM_ATOL (phase 12's); the
+    bf16-activation logits' largest difference from the f32 ones over
+    their standard deviation, read."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import tree as tree_lib
+
+    dev = torch.device(DEVICE)
+    B, S = CELL_SERVE_CHECK
+    toks = _lm_tokens(cfg, B, S + 1, seed + 7, dev)
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    act32 = dataclasses.replace(cfg, dtype="float32")
+    twin = tree_lib.tree_map(lambda t: t.float(), params)
+
+    def serve(p, c):
+        with torch.inference_mode():
+            last, cache = tf.lm_prefill(p, toks[:, :S], c, max_len=S + 1)
+            step, _ = tf.lm_decode_step(p, cache, toks[:, S:], S, c)
+        return torch.cat([last, step], dim=1).float()
+
+    ref, got, bf16 = serve(twin, f32), serve(params, act32), serve(params, cfg)
+    del twin
+    err, ok, ratio = _within(got, ref)
+    out = {"batch": B, "seq": S, "max_abs_err": err, "ok": ok, "of_tolerance": ratio,
+           "rtol": LM_RTOL, "atol": LM_ATOL,
+           "bf16_activations_max_diff_over_std": float((bf16 - ref).abs().max() / ref.std())}
+    if not ok:
+        fail(f"cells {cfg.name} f32 check: {json.dumps(out)}")
+    return out
+
+
+def _cell_serve(seed: int, smi: str) -> list[dict]:
+    """deepseek-coder-33b at published widths cut in depth
+    (``CELL_SERVE_ARCH``), its ``prefill_32k`` and ``decode_32k`` cells on a
+    1 x 1 mesh of the card (bf16 weights by the cells' rule for serving
+    above 2e9 parameters; both cells draw the same weights from ``seed``,
+    checked once against their f32 twin); each timed call a counted window
+    that must launch no kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_test_mesh
+
+    arch, cut, depth = CELL_SERVE_ARCH
+    dev = torch.device(DEVICE)
+    mesh = make_test_mesh((1, 1), device=dev)
+    lines, check = [], None
+    for shape, B, S, cuts in CELL_SERVE:
+        cell = cells.build(arch, shape, mesh, reduce_cfg=cut, batch=B, seq_len=S)
+        _peak_reset()
+        args = cell.materialize(dev, torch.Generator(device=dev).manual_seed(seed))
+        if check is None:
+            check, counts = counted(lambda: _lm_serve_check(cell.cfg, args[0], seed))
+            require(counts, {}, f"cells {arch} {shape} check")
+        _peak_reset()
+        if shape.startswith("prefill"):
+            def run():
+                return _timed_calls(lambda: cell.step(*args), CELL_SERVE_REPS, warmup=1)
+
+            (logits, times), counts = counted(run)
+            out = logits[0]
+            tokens = B * S
+        else:
+            def run():
+                params, cache, tok, _ = args
+                times = []
+                for i in range(CELL_DECODE_STEPS):
+                    t0 = time.perf_counter()
+                    nxt, cache = cell.step(params, cache, tok, S - CELL_DECODE_STEPS + i)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    tok = nxt[:, None]
+                return nxt, times[1:]
+
+            (out, times), counts = counted(run)
+            tokens = B
+        require(counts, {}, f"cells {arch} {shape}")
+        if not bool(torch.isfinite(out.float()).all()):
+            fail(f"cells {arch} {shape}: output not finite")
+        p50 = float(np.median(times))
+        row = {"cell": f"{arch} {shape}", "row": cell.step_name, "batch": B, "seq": S,
+               "param_dtype": cell.cfg.param_dtype, "p50_ms": p50 * 1e3,
+               "tokens_per_s": tokens / p50,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "f32_check": check, "reduced": [depth] + cuts, "launches": counts,
+               "device": smi}
+        log("cells " + json.dumps(row))
+        lines.append(row)
+        del args, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines
+
+
+def _cell_gnn(seed: int, smi: str) -> dict:
+    """``CELL_GNN``'s train cell materialised on the card and stepped twice
+    (the second timed), a counted window that must launch no kernel."""
+    import torch
+
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_test_mesh
+
+    dev = torch.device(DEVICE)
+    cell = cells.build(*CELL_GNN, make_test_mesh((1, 1), device=dev))
+    params, state, batch = cell.materialize(dev, torch.Generator(device=dev).manual_seed(seed))
+    _peak_reset()
+
+    def run():
+        out = []
+        p, s = params, state
+        for _ in range(2):
+            t0 = time.perf_counter()
+            p, s, m = cell.step(p, s, batch)
+            out.append((float(m["loss"]), time.perf_counter() - t0))
+        return out
+
+    steps, counts = counted(run)
+    require(counts, {}, f"cells {' '.join(CELL_GNN)}")
+    if not all(math.isfinite(loss) for loss, _ in steps):
+        fail(f"cells {CELL_GNN}: losses {steps}")
+    return {"cell": " ".join(CELL_GNN), "row": "train", "nodes": cell.meta["n_nodes"],
+            "edges_padded": cell.meta["n_edges"], "step_ms": steps[1][1] * 1e3,
+            "first_step_ms": steps[0][1] * 1e3, "losses": [x for x, _ in steps],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+            "device": smi}
+
+
+def _cell_bag_row(case: str, path: str, table, ids) -> dict:
+    """The bag kernel at a cell's ids, bit-identical to its plain version,
+    timed beside it and ``F.embedding_bag``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bag.bag import embedding_bag_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_ref
+
+    out = embedding_bag_cuda(table, ids, None, combine="sum")
+    ref = embedding_bag_ref(table, ids, None, combine="sum")
+    err = float((out - ref).abs().max())
+    if not torch.equal(out, ref):
+        fail(f"bag {case}: not bit-identical to its plain version (max err {err})")
+    lib_ids = ids.long()
+    B, S = ids.shape
+    return {"name": "bag", "case": f"{case} {B}x{S} D={table.shape[1]} sum", "path": path,
+            "idle": None, "counter": "bag", "source": "src/repro_torch/csrc/bag.cu",
+            "replaces": "src/repro/kernels/bag/bag.py:30", "max_abs_err": err,
+            "ms": cuda_ms(lambda: embedding_bag_cuda(table, ids, None, combine="sum"), 20),
+            "plain_ms": cuda_ms(lambda: embedding_bag_ref(table, ids, None, combine="sum"), 20),
+            "library_ms": cuda_ms(lambda: F.embedding_bag(lib_ids, table, mode="sum"), 20),
+            "bound": _bag_bound(ids, table.shape[1], False, table.element_size())}
+
+
+def _cell_bag_backward_row(case: str, path: str, ids, V: int, seed: int) -> dict:
+    """The bag's backward at a cell's ids into the (V, 1) gradient, on
+    integer-valued gradients so the atomics' order rounds nothing: equal
+    bit for bit to its plain version, timed beside it and ``index_add_``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import roofline
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref
+
+    dev = ids.device
+    B, S = ids.shape
+    g = torch.as_tensor(np.random.default_rng(seed).integers(-4, 5, size=(B, 1))
+                        .astype(np.float32), device=dev)
+    out = embedding_bag_backward_cuda(g, ids, None, V, combine="sum")
+    ref = embedding_bag_backward_ref(g, ids, None, V, combine="sum")
+    err = float((out - ref).abs().max())
+    if not torch.equal(out, ref):
+        fail(f"bag_backward {case}: disagrees with its plain version (max err {err})")
+    rows_ids = ids.reshape(-1).long()
+    src = g.repeat_interleave(S, dim=0)
+    return {"name": "bag_backward", "case": f"{case} {B}x{S} D=1 V={V} sum", "path": path,
+            "idle": None, "counter": "bag_backward", "source": "src/repro_torch/csrc/bag.cu",
+            "replaces": "no TPU kernel: XLA's scatter-add, the VJP of jnp.take at "
+                        "src/repro/dist/embedlookup.py:23",
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: embedding_bag_backward_cuda(g, ids, None, V,
+                                                              combine="sum"), 10),
+            "plain_ms": cuda_ms(lambda: embedding_bag_backward_ref(g, ids, None, V,
+                                                                   combine="sum"), 5),
+            "library_ms": cuda_ms(lambda: torch.zeros((V, 1), device=dev).index_add_(
+                0, rows_ids, src), 10),
+            "bound": _bound(*roofline.bag_backward_work(ids, 1, V, weighted=False))}
+
+
+def _cell_recsys(seed: int, smi: str) -> tuple[list[dict], list[dict], dict]:
+    """DeepFM's serve_p99 and train_batch cells materialised on the card:
+    CELL_RECSYS_REPS serve calls (after two warm-ups) and CELL_TRAIN_STEPS
+    AdamW steps (after one), each a counted window that must launch the
+    bag once a call (and its backward once a step); then the kernel rows
+    at the cells' ids.  Returns (lines, kernel rows, windows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import recsys as recsys_lib
+
+    arch, serve_shape, train_shape = CELL_RECSYS
+    dev = torch.device(DEVICE)
+    mesh = make_test_mesh((1, 1), device=dev)
+    lines, rows, windows = [], [], {}
+
+    cell = cells.build(arch, serve_shape, mesh)
+    params, batch = cell.materialize(dev, torch.Generator(device=dev).manual_seed(seed))
+    for _ in range(2):
+        cell.step(params, batch)
+    _peak_reset()
+    (probs, times), counts = counted(
+        lambda: _timed_calls(lambda: cell.step(params, batch), CELL_RECSYS_REPS, warmup=0))
+    path = f"{arch} {serve_shape} cell"
+    require(counts, {"bag": CELL_RECSYS_REPS}, path)
+    if not bool(torch.isfinite(probs).all()):
+        fail(f"cells {path}: scores not finite")
+    windows[path] = counts
+    p50 = float(np.median(times))
+    lines.append({"cell": f"{arch} {serve_shape}", "row": "serve", "batch": cell.batch_per_call,
+                  "p50_ms": p50 * 1e3, "examples_per_s": cell.batch_per_call / p50,
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts,
+                  "device": smi})
+    log("cells " + json.dumps(lines[-1]))
+    flat = recsys_lib._flat_ids(batch["ids"], cell.cfg)
+    rows.append(_cell_bag_row("first-order term, DeepFM serve_p99 cell", path,
+                              params["linear"], flat))
+    log("kernel " + json.dumps(rows[-1]))
+    del params, batch, probs
+    gc.collect()
+
+    cell = cells.build(arch, train_shape, mesh)
+    params, state, batch = cell.materialize(dev, torch.Generator(device=dev).manual_seed(seed))
+    V = params["linear"].shape[0]
+    params, state, _ = cell.step(params, state, batch)  # the warm-up
+    _peak_reset()
+
+    def run(p, s):
+        losses, times = [], []
+        for _ in range(CELL_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            p, s, m = cell.step(p, s, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    (losses, times), counts = counted(lambda: run(params, state))
+    path = f"{arch} {train_shape} cell"
+    require(counts, {"bag": CELL_TRAIN_STEPS, "bag_backward": CELL_TRAIN_STEPS}, path)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"cells {path}: losses {losses}")
+    windows[path] = counts
+    p50 = float(np.median(times))
+    lines.append({"cell": f"{arch} {train_shape}", "row": "train",
+                  "batch": cell.batch_per_call, "steps": CELL_TRAIN_STEPS,
+                  "p50_ms": p50 * 1e3, "examples_per_s": cell.batch_per_call / p50,
+                  "losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "launches": counts, "device": smi})
+    log("cells " + json.dumps(lines[-1]))
+    flat = recsys_lib._flat_ids(batch["ids"], cell.cfg)
+    rows.append(_cell_bag_row("first-order term, DeepFM train_batch cell", path,
+                              params["linear"], flat))
+    log("kernel " + json.dumps(rows[-1]))
+    rows.append(_cell_bag_backward_row("first-order gradient, DeepFM train_batch cell", path,
+                                       flat, V, seed))
+    log("kernel " + json.dumps(rows[-1]))
+    del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines, rows, windows
+
+
+def _cell_dryrun(smi: str) -> list[dict]:
+    """``CELL_DRYRUN`` through ``launch/dryrun.run_cell`` on the production
+    (16, 16) mesh of meta ranks, on the host: the roofline terms and the
+    per-device memory, analytic (no card reading)."""
+    import shutil
+
+    from repro_torch.launch import dryrun
+
+    out_dir = os.path.join(HERE, "build", f"phase15-dryrun-{os.getpid()}")
+    lines = []
+    try:
+        for arch, shape in CELL_DRYRUN:
+            t0 = time.perf_counter()
+            r = dryrun.run_cell(arch, shape, out_dir=out_dir)
+            line = {"cell": f"{arch} {shape}", "mesh": r["mesh"], "analytic": True,
+                    "source": "launch/dryrun.run_cell on meta tensors, on the host; "
+                              "H100 peaks, not a card reading",
+                    "seconds": time.perf_counter() - t0, "roofline": r["roofline"],
+                    "memory_per_device": r["memory"], "cost": r["cost"],
+                    "collectives": r["collectives"], "device": smi}
+            log("dryrun " + json.dumps(line))
+            lines.append(line)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return lines
+
+
+def phase_cells(seed: int, smi: str) -> tuple[list[dict], list[dict], dict]:
+    """Phase 15: cells built by ``launch/cells.build`` and materialised on
+    the card — qwen3-moe training on a (2, 4) mesh of ranks, deepseek-v3's
+    training reckoned, deepseek-coder-33b's serving cells, a GNN and two
+    recsys cells — and a dry-run of three cells on the production mesh of
+    meta ranks.  Returns (lines, kernel rows, windows)."""
+    import torch
+
+    t0 = time.perf_counter()
+    lines = _cell_train(seed, smi)
+    left = _cell_left_out()
+    left["device"] = smi
+    log("cells " + json.dumps(left))
+    lines.append(left)
+    lines += _cell_serve(seed, smi)
+    lines.append(_cell_gnn(seed, smi))
+    log("cells " + json.dumps(lines[-1]))
+    recsys, rows, windows = _cell_recsys(seed, smi)
+    lines += recsys
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines += _cell_dryrun(smi)
+    log(f"phase 15 seconds {time.perf_counter() - t0:.3f}")
+    return lines, rows, windows
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5105,6 +5652,8 @@ def main(argv=None) -> int:
     phase_models(args.seed, env["nvidia_smi"])
     moe_lines = phase_moe(args.seed, env["nvidia_smi"])
     phase_mesh(args.seed, env["nvidia_smi"], moe_lines)
+    _, cell_rows, cell_windows = phase_cells(args.seed, env["nvidia_smi"])
+    rows += cell_rows
     rows += phase_qpath_windows(sweeps)
 
     windows = {"full-width build": main_path["launches"]["build"],
@@ -5123,6 +5672,7 @@ def main(argv=None) -> int:
                     else "infinity retrieval": r["launches"]
                     for r in recsys if "launches" in r})
     windows.update(training_windows)
+    windows.update(cell_windows)
     kernels = []
     for row in rows:
         path = row["path"]

@@ -27,8 +27,54 @@ threads of the calling process, and one runs at a time: the baton passes
 in rank order at every collective, so the device holds one rank's
 temporaries at a time and a run is deterministic.  ``act`` returns its
 input: every rank shares one device, so a layout constraint moves nothing
-(the port has no GSPMD).  Serving only: ``shard_map`` refuses inputs that
-require grad while autograd records.
+(the port has no GSPMD).
+
+Gradients flow through ``shard_map`` by autograd alone, with no backward
+in the rank threads.  Each rank's block is a view of the caller's input
+and the output is assembled by copies into views, so both ends carry
+gradients.  A collective's result is computed once per group, in the last
+rank's thread, as one tensor that every member of the group uses; so its
+transpose is what autograd does with that one computation:
+
+* ``psum`` — the result is the sum of the members' operands, and every
+  member's use of it sends its cotangent into the same node: autograd sums
+  them (a psum of the cotangent over the same axes) and hands the sum to
+  each operand;
+* ``all_gather`` — the result is the concatenation (or stack) of the
+  operands: each member gets its slice of the summed cotangent (a
+  reduce-scatter over the same axis);
+* ``axis_index`` is an int and has no transpose.
+
+A backward is deterministic from run to run: the ranks record their graph
+one at a time in baton order, so the graph and the creation order of its
+nodes are the same every run, and autograd's engine, which runs the
+backward on the caller's side, orders ready nodes and accumulates each
+tensor's cotangents by that order.  Under ``torch.utils.checkpoint``
+(``cfg.remat``) the rank threads do not see the checkpoint's saved-tensor
+hooks (they are thread-local): the ranks keep their activations.  The
+checkpoint's recompute ends once the caller's saved tensors are back, so
+it reaches a ``shard_map`` only where one of them follows it (not in the
+MoE layer, whose output is only added to the residual); a rerun computes
+the same values.  The gradients are the same bits as without remat.
+
+The caller's torch dispatch modes are entered in every rank, so a counter
+of flops or bytes (``dist/roofline``) sees every rank's work, and the
+collectives report their bytes to ``roofline.collecting()``.
+
+A mesh on ``torch.device("meta")`` (the dry-run's, ``launch/mesh.
+make_meta_mesh``) holds shapes only: a rank's axis indices change the
+values it computes, never the shapes, so every rank runs the same ops on
+the same shapes.  There ``shard_map`` runs rank 0 alone, on a thread of
+its own, and weights its ops by the rank count for ``roofline.OpCounter``
+(``roofline.weighted``; its backward nodes too, through autograd node
+hooks; the other ranks' block backwards and their accumulation into each
+input's gradient are charged, ``roofline.charge``); each collective runs
+once for its group, as the threaded run computes it, weighted by the
+number of groups.  Flops and collectives are those of every rank run,
+bytes within 1 % and the live peak close to them
+(``tests/test_torch_cells.py`` holds the two to each other), at the cost
+of one rank: 256 or 512 ranks of a production mesh would otherwise run
+every op of every rank.  ``SYMMETRIC_META = False`` runs every rank.
 """
 from __future__ import annotations
 
@@ -39,8 +85,13 @@ import threading
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
+from torch.utils import _python_dispatch as _pydispatch
 
+from repro_torch.dist import roofline
 from repro_torch.models import params as plib
+
+#: run one rank of a meta mesh, weighted (see the module docstring)
+SYMMETRIC_META = True
 
 # FSDP pays one weight all-gather per layer; below ~1B parameters the
 # weights fit replicated and the gather is pure overhead.
@@ -193,6 +244,7 @@ class _Run:
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        self.stats = roofline.current_collectives()
         self.n = mesh.size
         self.coords = [mesh.coords(r) for r in range(self.n)]
         self.batons = [threading.Semaphore(0) for _ in range(self.n)]
@@ -256,15 +308,18 @@ class _Run:
                 out = torch.cat(parts, dim=axis) if tiled else torch.stack(parts, dim=axis)
             for r in members:
                 self.results[r] = out
+        if self.stats is not None:
+            self.stats.record(kind, xs[0], out)
 
     def rank_main(self, r: int, f: Callable, args: list, outs: list, modes: tuple) -> None:
-        grad, inference, stream = modes
+        grad, inference, stream, dispatch = modes
         try:
             self.wait(r)
             _RANK.run, _RANK.rank = self, r
             on_stream = (torch.cuda.stream(stream) if stream is not None
                          else contextlib.nullcontext())
-            with torch.inference_mode(inference), torch.set_grad_enabled(grad), on_stream:
+            with torch.inference_mode(inference), torch.set_grad_enabled(grad), on_stream, \
+                    _dispatch_modes(dispatch):
                 outs[r] = f(*args)
             self.finish(r)
         except _Aborted:
@@ -273,6 +328,133 @@ class _Run:
             self.fail(e)
         finally:
             _RANK.run = None
+
+
+class _Symmetric:
+    """The collectives of rank 0 standing for every rank of a meta mesh:
+    each computes its group's result from g copies of rank 0's operand, as
+    ``_Run._complete`` does from the g members' (psum: a clone and g - 1
+    adds; all_gather: one concatenation or stack), weighted by the number
+    of groups; its autograd nodes keep that weight in the backward."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.stats = roofline.current_collectives()
+        self.coords = [mesh.coords(0)]
+        self.node_weight: dict = {}
+
+    def collective(self, r: int, op: tuple, x: torch.Tensor):
+        kind, names, *args = op
+        g = math.prod(self.mesh.shape[n] for n in names)
+        w = self.mesh.size // g
+        with roofline.weighted(w):
+            if kind == "psum":
+                out = x.clone()
+                for _ in range(g - 1):
+                    out += x
+            else:
+                axis, tiled = args
+                out = torch.cat([x] * g, dim=axis) if tiled else torch.stack([x] * g, dim=axis)
+        if out.requires_grad:
+            for node in _graph_nodes(out, stop={x.grad_fn}):
+                self.node_weight.setdefault(node, w)
+        if self.stats is not None:
+            self.stats.record(kind, x, out)
+        return out
+
+
+def _graph_nodes(out: torch.Tensor, *, stop: set) -> list:
+    """The autograd nodes from ``out``'s back to (not into) ``stop`` and
+    the leaves' accumulators: a rank's nodes, when ``stop`` holds its
+    inputs' (``f`` reads tensors only through its inputs)."""
+    seen, todo, nodes = set(), [out.grad_fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen or node in stop \
+                or type(node).__name__ == "AccumulateGrad":
+            continue
+        seen.add(node)
+        nodes.append(node)
+        todo.extend(n for n, _ in node.next_functions)
+    return nodes
+
+
+def _weight_backward(nodes: list, weights: dict, default: int) -> None:
+    """Count each node's backward ops its forward weight times."""
+    for node in nodes:
+        w = weights.get(node, default)
+        node.register_prehook(lambda grads, w=w: roofline.push_weight(w))
+        node.register_hook(lambda grad_in, grad_out: roofline.pop_weight())
+
+
+def _chain_bytes(a: torch.Tensor, block: torch.Tensor) -> list:
+    """The bytes of each ``slice_backward`` from ``block`` back to ``a``
+    (one per split dimension: it reads the smaller gradient and writes the
+    larger)."""
+    shape, out = list(a.shape), []
+    for dim, (full, part) in enumerate(zip(a.shape, block.shape)):
+        if full != part:
+            before = math.prod(shape)
+            shape[dim] = part
+            out.append((before + math.prod(shape)) * a.element_size())
+    return out
+
+
+def _run_symmetric(f: Callable, mesh: Mesh, args: tuple, in_specs: tuple):
+    """Rank 0 of a meta mesh, its work weighted by the rank count; returns
+    its outputs.  It runs on a thread of its own, as every rank of the
+    threaded run does, so it sees the same thread-local state (the
+    caller's grad and inference modes and dispatch modes; no saved-tensor
+    hooks)."""
+    run = _Symmetric(mesh)
+    blocks = [_block(a, s, mesh, run.coords[0]) for a, s in zip(args, in_specs)]
+    modes = (torch.is_grad_enabled(), torch.is_inference_mode_enabled(),
+             _pydispatch._get_current_dispatch_mode_stack())
+    done: dict = {}
+
+    def rank0():
+        grad, inference, dispatch = modes
+        _RANK.run, _RANK.rank = run, 0
+        try:
+            with torch.inference_mode(inference), torch.set_grad_enabled(grad), \
+                    _dispatch_modes(dispatch), roofline.weighted(mesh.size):
+                done["out"] = f(*blocks)
+        except BaseException as e:  # re-raised on the caller's thread
+            done["error"] = e
+        finally:
+            _RANK.run = None
+
+    thread = threading.Thread(target=rank0, name="shard_map rank 0 of a meta mesh")
+    thread.start()
+    thread.join()
+    if "error" in done:
+        raise done["error"]
+    out = done["out"]
+    if not (modes[0] and any(a.requires_grad for a in args)):
+        return out
+    for a, b in zip(args, blocks):
+        if a.requires_grad:  # the other ranks' block backwards, accumulated
+            steps = _chain_bytes(a, b)
+            roofline.charge((mesh.size - 1) * (sum(steps) + 3 * a.nbytes),
+                            (mesh.size - 1) * (len(steps) + 1))
+    stop = {b.grad_fn for b in blocks if b.grad_fn is not None}
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            _weight_backward(_graph_nodes(t, stop=stop), run.node_weight, mesh.size)
+    return out
+
+
+@contextlib.contextmanager
+def _dispatch_modes(stack: list):
+    """The caller's torch dispatch modes, entered on this rank's thread
+    (the mode stack is thread-local)."""
+    for mode in stack:
+        _pydispatch._push_mode(mode)
+    try:
+        yield
+    finally:
+        for _ in stack:
+            _pydispatch._pop_mode()
 
 
 def _current() -> tuple[_Run, int]:
@@ -318,7 +500,9 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs) -> Callable:
     rank's block by its ``in_specs`` entry, ``f`` runs once per rank, and
     the outputs (one tensor, or a tuple matching a tuple of specs) are
     assembled by ``out_specs``.  Every input must live on ``mesh.device``.
-    A rank's exception is re-raised here after every rank has stopped."""
+    A rank's exception is re-raised here after every rank has stopped.
+    Inputs that require grad get their gradients through the ranks'
+    blocks (see the module docstring)."""
     in_specs = tuple(in_specs)
 
     def mapped(*args):
@@ -328,32 +512,42 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs) -> Callable:
             if a.device != mesh.device:
                 raise ValueError(f"shard_map: an input on {a.device}, the mesh on "
                                  f"{mesh.device}")
-        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-            raise NotImplementedError("shard_map: no gradient through the port's "
-                                      "shard_map yet (serving only)")
-        blocks = [local_blocks(a, s, mesh) for a, s in zip(args, in_specs)]
-        run = _Run(mesh)
-        outs: list = [None] * mesh.size
-        stream = (torch.cuda.current_stream(mesh.device) if mesh.device.type == "cuda"
-                  else None)
-        modes = (torch.is_grad_enabled(), torch.is_inference_mode_enabled(), stream)
-        threads = [threading.Thread(target=run.rank_main, name=f"shard_map rank {r}",
-                                    args=(r, f, [b[r] for b in blocks], outs, modes),
-                                    daemon=True)
-                   for r in range(mesh.size)]
-        for t in threads:
-            t.start()
-        run.batons[0].release()
-        for t in threads:
-            t.join()
-        if run.error is not None:
-            raise run.error
+        if mesh.device.type == "meta" and SYMMETRIC_META:
+            for a, s in zip(args, in_specs):
+                _spec_axes(s, mesh)
+            out = _run_symmetric(f, mesh, args, in_specs)
+            outs = [out] * mesh.size
+        else:
+            outs = _run_ranks(f, mesh, args, in_specs)
         if isinstance(out_specs, P) or not isinstance(out_specs, (tuple, list)):
             return _assemble(outs, out_specs, mesh)
         return tuple(_assemble([o[i] for o in outs], s, mesh)
                      for i, s in enumerate(out_specs))
 
     return mapped
+
+
+def _run_ranks(f: Callable, mesh: Mesh, args: tuple, in_specs: tuple) -> list:
+    """Every rank's outputs, each rank a thread (see ``_Run``)."""
+    blocks = [local_blocks(a, s, mesh) for a, s in zip(args, in_specs)]
+    run = _Run(mesh)
+    outs: list = [None] * mesh.size
+    stream = (torch.cuda.current_stream(mesh.device) if mesh.device.type == "cuda"
+              else None)
+    modes = (torch.is_grad_enabled(), torch.is_inference_mode_enabled(), stream,
+             _pydispatch._get_current_dispatch_mode_stack())
+    threads = [threading.Thread(target=run.rank_main, name=f"shard_map rank {r}",
+                                args=(r, f, [b[r] for b in blocks], outs, modes),
+                                daemon=True)
+               for r in range(mesh.size)]
+    for t in threads:
+        t.start()
+    run.batons[0].release()
+    for t in threads:
+        t.join()
+    if run.error is not None:
+        raise run.error
+    return outs
 
 
 # ---------------------------------------------------------------------------

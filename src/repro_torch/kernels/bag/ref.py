@@ -130,13 +130,16 @@ def embedding_bag_backward_ref(
     """grad_out (B, D), ids (B, S), weights (B, S) or None -> the (num_rows,
     D) gradient of ``embedding_bag`` with respect to its table (dense, in
     grad_out's dtype): one ``index_add_`` of ``w[b, s] * (g[b] / div[b])``
-    into row ``ids[b, s]`` for every valid id."""
+    into row ``ids[b, s]`` for every valid id.  A padding id adds +0.0 to
+    row 0, which changes no value (and keeps every shape independent of
+    the ids, so the function runs on meta tensors)."""
     check_backward_args(grad_out, ids, weights, combine)
     B, S = ids.shape
     D = grad_out.shape[1]
     w, div = bag_scale(ids, weights, combine, grad_out.dtype)
-    valid = (ids >= 0).reshape(-1)
-    contrib = (w[:, :, None] * (grad_out / div)[:, None, :]).reshape(B * S, D)[valid]
+    valid = (ids >= 0).reshape(-1, 1)
+    contrib = (w[:, :, None] * (grad_out / div)[:, None, :]).reshape(B * S, D)
+    contrib = torch.where(valid, contrib, 0.0)
     grad = torch.zeros((num_rows, D), dtype=grad_out.dtype, device=grad_out.device)
-    return grad.index_add_(0, ids.reshape(-1)[valid].long(), contrib)
+    return grad.index_add_(0, ids.reshape(-1).clamp_min(0).long(), contrib)
 

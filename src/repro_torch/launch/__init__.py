@@ -1,2 +1,4 @@
 """Entry points of the port: ``serve`` (``SearchServer`` and its CLI),
-``train`` and ``mesh`` (the mesh builders)."""
+``train``, ``mesh`` (the mesh builders), ``cells`` (the (arch x shape x
+mesh) cell table) and ``dryrun`` (cells run on meta tensors over the
+production mesh)."""

@@ -87,7 +87,10 @@ def _chunked_causal(q: torch.Tensor, kv_chunk_fn: Callable, n_chunks: int, chunk
     m = torch.full((B, KV, G, S), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, S, Dv), dtype=torch.float32, device=q.device)
-    host = positions.cpu()
+    # a meta tensor holds no values: the dry-run's meta steps reach this
+    # loop only from lm_forward, lm_loss and lm_prefill, whose positions
+    # are 0 .. S - 1
+    host = torch.arange(S) if positions.device.type == "meta" else positions.cpu()
     ascending = bool((host[1:] >= host[:-1]).all())
     in_place = not torch.is_grad_enabled()
     for c in range(n_chunks):

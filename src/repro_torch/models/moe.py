@@ -77,7 +77,9 @@ def load_balance_loss(probs: torch.Tensor, top_i: torch.Tensor, cfg: LMConfig) -
     """Switch-style aux loss: E * sum_e f_e * P_e."""
     E = cfg.num_experts
     pe = probs.reshape(-1, E).mean(0)
-    counts = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    flat = top_i.reshape(-1)
+    # bincount's counts by an integer scatter-add, which has a meta kernel
+    counts = flat.new_zeros(E).scatter_add_(0, flat, torch.ones_like(flat)).float()
     fe = counts / counts.sum().clamp_min(1.0)
     return E * (fe * pe).sum()
 

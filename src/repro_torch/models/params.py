@@ -5,8 +5,9 @@ records: shape, logical axis names and initializer.  ``init_params``
 materialises the tree with an explicit ``torch.Generator`` on the device;
 ``param_count`` / ``param_bytes`` read the declarations alone;
 ``TreeModule`` holds a materialised tree as an ``nn.Module``.  The
-sharding view is ``dist/sharding.DistCtx.shard_w``; the abstract
-(dry-run) view waits for the port's ``launch/dryrun``.
+sharding view is ``dist/sharding.DistCtx.shard_w``; the abstract view
+(``abstract_params``: meta tensors, nothing allocated) is what
+``launch/cells`` and ``launch/dryrun`` run a step on.
 
 The two frameworks draw different numbers from one seed: parity tests
 initialise in JAX and load the weights (``convert.params_from_jax``).
@@ -96,6 +97,34 @@ def init_params(decls: PyTree, *, generator: torch.Generator,
     scaled by ``Param.scale`` or 1/sqrt(fan-in)."""
     drawn = {path: _init_leaf(p, generator, device) for path, p in leaves(decls)}
     return map_decls(lambda path, _: drawn[path], decls)
+
+
+def abstract_params(decls: PyTree) -> PyTree:
+    """The declaration tree as tensors on ``torch.device("meta")`` of the
+    declared shapes and dtypes (JAX's ``ShapeDtypeStruct`` tree): the
+    dry-run never allocates parameters."""
+    return map_decls(lambda _, p: torch.empty(p.shape, dtype=getattr(torch, p.dtype),
+                                              device="meta"), decls)
+
+
+def logical_specs(decls: PyTree) -> PyTree:
+    """Each leaf's tuple of logical axis names."""
+    return map_decls(lambda _, p: p.logical, decls)
+
+
+def map_with_decls(fn: Callable[[Param, Any], Any], decls: PyTree, tree: PyTree) -> PyTree:
+    """``fn(param, leaf)`` over the leaves of ``tree`` (dicts and lists of
+    the declarations' structure, or a ``TreeModule``), in ``decls``'
+    structure."""
+    if is_param(decls):
+        return fn(decls, tree)
+    if isinstance(decls, dict):
+        if sorted(decls) != sorted(tree.keys()):
+            raise ValueError(f"tree keys {sorted(tree.keys())} against {sorted(decls)}")
+        return {key: map_with_decls(fn, decls[key], tree[key]) for key in decls}
+    if len(decls) != len(tree):
+        raise ValueError(f"tree of {len(tree)} children against {len(decls)}")
+    return [map_with_decls(fn, d, t) for d, t in zip(decls, tree)]
 
 
 def param_count(decls: PyTree) -> int:

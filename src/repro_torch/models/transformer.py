@@ -161,6 +161,18 @@ def _attn_call(p, x, positions, cfg, dctx, cache=None, cache_index=None,
     return act(dctx, out, "batch", "seq", "embed_act"), kv
 
 
+def moe_takes_ep(cfg: LMConfig, dctx: Optional[DistCtx], batch: int) -> bool:
+    """JAX's test for the expert-parallel path: a mesh whose model axis
+    divides the experts and whose batch axes split a batch of ``batch``
+    sequences."""
+    if dctx is None or not dctx.batch_axes or "model" not in dctx.mesh.shape:
+        return False
+    shards = 1
+    for a in dctx.batch_axes:
+        shards *= dctx.mesh.shape[a]
+    return cfg.num_experts % dctx.mesh.shape["model"] == 0 and batch % shards == 0
+
+
 def _moe_ffn(p, x, cfg, dctx=None):
     """Routed experts (+ the shared expert).  Returns (out, aux loss).
     JAX's test: under a mesh whose model axis divides the experts and
@@ -171,23 +183,10 @@ def _moe_ffn(p, x, cfg, dctx=None):
     probs = moe_lib.router_probs(x, p["router"], cfg)
     top_w, top_i = moe_lib.topk_weights(probs, cfg)
     aux = moe_lib.load_balance_loss(probs, top_i, cfg)
-    batch_axes = dctx.batch_axes if dctx is not None else ()
-    B = x.shape[0]
-    shards = 1
-    if dctx is not None:
-        for a in batch_axes:
-            shards *= dctx.mesh.shape[a]
-    use_ep = (
-        dctx is not None
-        and "model" in dctx.mesh.shape
-        and cfg.num_experts % dctx.mesh.shape["model"] == 0
-        and B % shards == 0
-        and batch_axes
-    )
-    if use_ep:
+    if moe_takes_ep(cfg, dctx, x.shape[0]):
         impl = dctx.opt("moe_impl", "gathered")
         fn = moe_lib.moe_ffn_ep_zero3 if impl == "zero3" else moe_lib.moe_ffn_ep
-        out = fn(x, probs.to(x.dtype), p, cfg, mesh=dctx.mesh, batch_axes=batch_axes)
+        out = fn(x, probs.to(x.dtype), p, cfg, mesh=dctx.mesh, batch_axes=dctx.batch_axes)
     else:
         out = moe_lib.moe_ffn_dispatch(x, top_w, top_i, p, cfg)
     if cfg.num_shared_experts:

@@ -20,7 +20,9 @@ dtype in the manifest, as JAX stores them.
 Guarantees, as JAX's: atomic publish (a checkpoint is visible only after
 its directory and the ``LATEST`` pointer are renamed into place);
 integrity (sha256 per leaf, verified on restore); ``restore`` puts the
-leaves on ``device`` (default CUDA); ``AsyncCheckpointer`` copies the tree
+leaves on ``device`` (default CUDA) or, given ``shardings=`` and
+``mesh=``, re-shards them onto that mesh (JAX's elastic re-mesh);
+``AsyncCheckpointer`` copies the tree
 to the host on the caller's thread and writes it on a worker thread, so
 the train loop does not wait for the disk.
 """
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import sharding
 from repro_torch.train import tree as tree_lib
 
 Tree = Any
@@ -136,24 +139,43 @@ def restore(
     target_tree: Tree,
     *,
     step: Optional[int] = None,
+    shardings: Optional[Tree] = None,
+    mesh: Optional[sharding.Mesh] = None,
     device: DeviceLike = None,
     verify: bool = True,
 ) -> tuple[Tree, int]:
     """Restore into the structure of ``target_tree`` (shapes must match):
     tensor leaves as tensors on ``device`` (default CUDA) in the stored
-    dtype, int leaves as host ints.  Returns (tree, step)."""
+    dtype, int leaves as host ints.  Returns (tree, step).
+
+    ``shardings`` (a tree of ``P`` specs, ``target_tree``'s structure) with
+    the ``mesh`` they refer to re-shards each leaf onto that mesh — JAX's
+    elastic re-mesh, where a checkpoint saved under one mesh restores
+    under another mesh's ``DistCtx.shard_w`` specs.  Every rank of the
+    port's mesh shares ``mesh.device``, so each leaf goes there whole; a
+    spec that does not divide its leaf raises ``ValueError``, as
+    ``jax.device_put`` does."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    dev = resolve_device(device)
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restore: shardings= needs the mesh= its specs refer to")
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"restore: device {device} is not the mesh's {mesh.device}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
     _, spec = tree_lib.flatten(target_tree)
+    specs = (tree_lib.flatten_up_to(spec, shardings) if shardings is not None
+             else [None] * len(by_path))
     out = []
-    for key, leaf in tree_lib.paths(target_tree):
+    for (key, leaf), pspec in zip(tree_lib.paths(target_tree), specs):
         entry = by_path[key]
         fpath = os.path.join(d, entry["file"])
         if verify:
@@ -166,6 +188,8 @@ def restore(
         if expect is not None and tuple(arr.shape) != expect:
             raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs {expect}")
         if isinstance(leaf, (bool, int)) and not isinstance(leaf, np.generic):
+            if pspec:
+                raise ValueError(f"spec {pspec} for the scalar {key}")
             out.append(int(arr))
             continue
         if str(arr.dtype) != entry["dtype"]:  # raw bits of a bf16 / fp8 leaf
@@ -173,6 +197,11 @@ def restore(
             t = torch.from_numpy(np.ascontiguousarray(bits)).view(_BITS[entry["dtype"]])
         else:
             t = torch.from_numpy(np.ascontiguousarray(arr))
+        if pspec is not None:
+            try:
+                sharding.local_blocks(t, sharding.P(*pspec), mesh)
+            except ValueError as e:
+                raise ValueError(f"restore: {key} under {pspec}: {e}") from None
         out.append(t.to(dev))
     return tree_lib.unflatten(spec, out), step
 

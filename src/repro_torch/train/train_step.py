@@ -16,9 +16,8 @@ the cache; ``mla_absorb`` picks MLA's absorbed decode).  Serve steps take
 ``LMModel``) or the same tree as a dict, and run under
 ``torch.inference_mode``.  Every factory takes JAX's ``dctx`` (a
 ``dist/sharding.DistCtx``, after ``family`` / ``opt``) and hands it to the
-model: an LM's MoE layers then run expert-parallel over the mesh's ranks.
-The port's ``shard_map`` has no gradient yet, so an LM train step under a
-mesh whose batch takes the expert-parallel path raises.
+model: an LM's MoE layers then run expert-parallel over the mesh's ranks,
+in training too (gradients flow through ``dist/sharding.shard_map``).
 """
 from __future__ import annotations
 

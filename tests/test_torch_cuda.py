@@ -1433,3 +1433,84 @@ def test_lm_train_step_on_card_matches_cpu(cuda, arch):
         assert float(m_gpu["loss"]) == pytest.approx(float(m_cpu["loss"]), rel=1e-5)
     torch.cuda.synchronize()
     assert not any(_build.launches().values())
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+def test_lm_gradients_under_a_mesh_on_card(cuda, arch, remat):
+    """REDUCED (f32), capacity E / k so nothing drops, TF32 off: every
+    gradient of ``lm_loss`` under ``lm_policy`` on a (2, 4) mesh of ranks
+    on the card (its MoE layers expert-parallel, gradients through
+    ``shard_map``) against the card without the mesh and against the same
+    mesh on the CPU, rtol / atol 1e-5; no kernel launched."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import tree as tree_lib
+    from repro_torch.train.train_step import value_and_grad
+
+    base = configs.get_reduced(arch)
+    cfg = dataclasses.replace(base, remat=remat,
+                              capacity_factor=base.num_experts / base.num_experts_per_tok)
+    gpu = transformer.LMModel.build(cfg, device=cuda).tree()
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 16))
+    _build.reset_launches()
+    grads = []
+    for params, dev, mesh in ((gpu, cuda, (2, 4)), (gpu, cuda, None),
+                              (_cpu_tree(gpu), torch.device("cpu"), (2, 4))):
+        dctx = None if mesh is None else lm_policy(cfg, make_test_mesh(mesh, device=dev),
+                                                   batch=4)
+        batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        grads.append(value_and_grad(transformer.lm_loss, params, batch, cfg, dctx)[0])
+    torch.cuda.synchronize()
+    assert not any(_build.launches().values())
+    for (path, a), b, c in zip(tree_lib.paths(grads[0]), tree_lib.leaves(grads[1]),
+                               tree_lib.leaves(grads[2])):
+        assert a.device.type == cuda.type
+        for ref in (b, c):
+            np.testing.assert_allclose(a.cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("kind", ["psum", "all_gather"])
+def test_collective_gradcheck_on_card(cuda, kind):
+    """``psum`` over both axes and a stacked ``all_gather`` inside
+    ``shard_map`` on a (2, 2) mesh of the card pass ``gradcheck`` in f64."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P
+    from repro_torch.launch.mesh import make_test_mesh
+
+    def f(x):
+        y = torch.tanh(x)
+        z = (sharding.psum(y, ("data", "model")) if kind == "psum"
+             else sharding.all_gather(y, "model", axis=0, tiled=False))
+        return torch.sin(z) * (1.0 + sharding.axis_index("model"))
+
+    mesh = make_test_mesh((2, 2), device=cuda)
+    out_spec = P("data", "model") if kind == "psum" else P(None, "data")
+    fn = sharding.shard_map(f, mesh=mesh, in_specs=(P("data", "model"),), out_specs=out_spec)
+    x = torch.randn(4, 6, dtype=torch.float64, device=cuda, requires_grad=True)
+    assert torch.autograd.gradcheck(fn, (x,))
+
+
+def test_restore_onto_a_card_mesh(cuda, tmp_path):
+    """A checkpoint written from the CPU restores under a (2, 4) card
+    mesh's ``shard_w`` specs: every leaf on the card, bit-equal."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import lm_policy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import checkpoint
+    from repro_torch.train import tree as tree_lib
+
+    cfg = configs.get_reduced("qwen3-moe-235b-a22b")
+    params = transformer.LMModel.build(cfg, device="cpu").tree()
+    checkpoint.save(str(tmp_path), 1, params)
+    mesh = make_test_mesh((2, 4), device=cuda)
+    specs = lm_policy(cfg, mesh, fsdp=True).shard_w(transformer.lm_decls(cfg))
+    got, _ = checkpoint.restore(str(tmp_path), params, shardings=specs, mesh=mesh)
+    for a, b in zip(tree_lib.leaves(got), tree_lib.leaves(params)):
+        assert a.device == mesh.device and torch.equal(a.cpu(), b)

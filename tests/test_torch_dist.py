@@ -267,11 +267,14 @@ def test_outputs_take_rank_zero_along_unnamed_axes():
 
 
 def test_shard_map_refuses_grad_and_wrong_arity():
+    """Gradients now flow through ``shard_map`` (an identity map hands
+    back the cotangent); the wrong arity and a collective outside a rank
+    are still refused."""
     mesh = _mesh()
     fn = sharding.shard_map(lambda x: x, mesh=mesh, in_specs=(P(),), out_specs=P())
     w = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="gradient"):
-        fn(w)
+    (g,) = torch.autograd.grad((fn(w) * torch.arange(3.0)).sum(), [w])
+    assert torch.equal(g, torch.arange(3.0))
     with torch.no_grad():
         assert torch.equal(fn(w), w.detach())
     with pytest.raises(TypeError):

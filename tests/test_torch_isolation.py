@@ -59,6 +59,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import repro_torch.train.checkpoint, repro_torch.train.fault, "
         "repro_torch.train.optimizer, repro_torch.train.tree, "
         "repro_torch.dist.compression, repro_torch.launch.train\n"
+        "import repro_torch.launch.cells, repro_torch.launch.dryrun, "
+        "repro_torch.launch.mesh, repro_torch.dist.roofline, repro_torch.dist.sharding\n"
         "import repro_torch.models.transformer, repro_torch.models.gnn, "
         "repro_torch.models.sampler, repro_torch.models.attention, "
         "repro_torch.models.moe, repro_torch.configs.deepseek_v3_671b, "

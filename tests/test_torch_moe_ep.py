@@ -41,6 +41,7 @@ from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train import train_step as tsteps  # noqa: E402
+from repro_torch.train import tree as tree_lib  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 RTOL = ATOL = 1e-5
@@ -313,17 +314,23 @@ def test_one_rank_mesh_changes_nothing(arch):
         assert torch.equal(a, b)
 
 
-def test_lm_train_step_under_an_ep_mesh_raises():
-    """No gradient through the port's ``shard_map`` yet."""
-    cfg = tconfigs.get_reduced(BASE)
+def test_lm_train_step_under_an_ep_mesh_matches_unsharded():
+    """The same step under the (2, 4) policy runs (gradients through the
+    port's ``shard_map``) and, at a capacity where nothing drops, gives
+    the unsharded step's loss and parameters (rtol / atol 1e-5)."""
+    cfg = dataclasses.replace(tconfigs.get_reduced(BASE), capacity_factor=8.0)
     model = ttf.LMModel.build(cfg, device=CPU)
     dctx = sharding.lm_policy(cfg, _mesh(), kind="train", batch=2)
+    assert ttf.moe_takes_ep(cfg, dctx, 2)
     opt = opt_lib.adamw(1e-3)
     params = model.tree()
-    step = tsteps.make_train_step(cfg, "lm", opt, dctx)
-    toks = torch.randint(0, cfg.vocab_size, (2, 8))
-    with pytest.raises(NotImplementedError, match="gradient"):
-        step(params, opt.init(params), {"tokens": toks})
+    toks = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, 8)))
+    out = [tsteps.make_train_step(cfg, "lm", opt, ctx)(params, opt.init(params),
+                                                       {"tokens": toks})
+           for ctx in (dctx, None)]
+    assert float(out[0][2]["loss"]) == pytest.approx(float(out[1][2]["loss"]), rel=RTOL)
+    for a, b in zip(tree_lib.leaves(out[0][0]), tree_lib.leaves(out[1][0])):
+        _close(a, b.numpy())
 
 
 def _corpus():
