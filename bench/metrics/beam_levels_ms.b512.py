@@ -1,0 +1,8 @@
+"""The beam's level loop per batch: the mean of the program's
+``traversal`` span with ``mode="beam"`` (``core/vptree.search_beam``,
+synchronised at its close while telemetry is on) in the telemetry half."""
+from bench.harness.stages import span_ms
+
+
+def read(run):
+    return span_ms(run, "traversal", mode="beam")

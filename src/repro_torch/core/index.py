@@ -336,9 +336,6 @@ class ShardedIndex:
     attrs: Any = None  # core/attrs store, placed over the shard rows
     quant: Any = None  # core/quant store, placed over the shard rows
     chaos: Any = None  # core/chaos.FaultPlan — per-shard fault injection
-    #: first-seen (k, budget, mask, quant, sel, shard_alive) keys: the
-    #: ``jit_cache_*{scope="shard"}`` counters keep JAX's names and keys
-    _keys: set = dataclasses.field(default_factory=set, repr=False)
     _views: Optional[list] = dataclasses.field(default=None, repr=False)
 
     # ------------------------------------------------------------------ build
@@ -498,12 +495,6 @@ class ShardedIndex:
         if mask is not None and getattr(self.engine_cls, "shard_uses_selectivity", False):
             sel = filter_lib.bucket_selectivity(
                 filter_lib.cached_selectivity(filter, self.attrs, mask))
-        key = (k, True if traced else base, mask is not None, self.quant is not None,
-               sel, shard_alive)
-        fresh = key not in self._keys
-        self._keys.add(key)
-        telem.count("jit_cache_misses_total" if fresh else "jit_cache_hits_total",
-                    engine=self.engine, scope="shard", k=k)
         alive = shard_alive or (True,) * S
         if not all(alive):
             telem.count("shard_masked_total", sum(1 for a in alive if not a),

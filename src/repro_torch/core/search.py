@@ -23,11 +23,14 @@ params tree, VP tree and flattened beam state, searched as ``search``
 does (no quant store: infinity takes no ``quant=`` shard operand).
 
 Telemetry (``core/telemetry``): the ``embed``, ``traversal`` and
-``rerank`` spans, ``comparisons_total{stage=...}`` per branch, and the
-beam's three stage counters with the call's wall time apportioned by
-their comparison share (``_note_stages``).  Every device sync and
-``.item()`` that feeds a counter runs only while telemetry is enabled, so
-the disabled path adds no host sync to a search.
+``rerank`` spans here, the beam's ``traversal`` (its level loop) and
+``bucket_scan`` spans inside ``core/vptree.search_beam``, and
+``comparisons_total{stage=...}`` per branch, the beam's counted by stage
+(``traversal``, ``centroid_rank``, ``bucket_scan``: the centroid ranking
+runs inside each level, so it has a counter and no span).  Every device
+sync that closes a span and every ``.item()`` that feeds a counter runs
+only while telemetry is enabled, so the disabled path adds no host sync
+to a search; under ``torch.profiler`` the spans are its ranges.
 """
 from __future__ import annotations
 
@@ -53,23 +56,14 @@ from repro_torch.core.index import SearchResult
 from repro_torch.device import DeviceLike, resolve_device, sync
 
 
-def _note_stages(engine: str, qv: float, dt_s: float, stages: dict) -> None:
-    """Record the beam's stage counters.  The three traversal stages run
-    inside one search call, so their wall-clock split is not measured:
-    each stage's span is the call's time apportioned by its comparison
-    share, flagged ``estimated`` in the trace args.  Counters are exact."""
+def _note_stages(engine: str, qv: float, stages: dict) -> None:
+    """Count the beam's comparisons by stage (reads the device counters
+    back — only when telemetry is enabled)."""
     if not telem.enabled():
         return
-    vals = {name: int(arr.sum()) for name, arr in stages.items()}
-    total = sum(vals.values())
     qs = telem.q_label(qv)
-    ts = telem.now_us() - dt_s * 1e6
-    for name, v in vals.items():
-        telem.count("comparisons_total", v, engine=engine, stage=name, q=qs)
-        share = dt_s * (v / total) if total else 0.0
-        telem.emit_span(name, share, ts_us=ts, engine=engine,
-                        args={"comparisons": v, "estimated": True})
-        ts += share * 1e6
+    for name, arr in stages.items():
+        telem.count("comparisons_total", int(arr.sum()), engine=engine, stage=name, q=qs)
 
 
 def _note_comps(engine: str, stage: str, qv: float, comps) -> None:
@@ -321,16 +315,13 @@ class InfinityIndex:
                 K = max(K, quant_lib.shortlist_width(k, self.X.shape[0], mult=8))
             flat, Zf, zc = self._flat_view()
             codes, scales = zc if zc is not None else (None, None)
-            t0 = time.perf_counter()
             idx, _, comps, stages = vptree_lib.search_beam(
                 flat, Zq, q=qv, k=K, X=Zf, metric="euclidean",
                 max_comparisons=None if max_comparisons is None else int(max_comparisons),
                 beam_width=beam_width, bucket_cap=bucket_cap, valid=mask,
                 codes=codes, scales=scales, with_stages=True,
             )
-            if telem.enabled():
-                sync(dev)
-                _note_stages("infinity", qv, time.perf_counter() - t0, stages)
+            _note_stages("infinity", qv, stages)
         else:
             with telem.span("traversal", engine="infinity", mode="best_first"):
                 idx, _, comps = vptree_lib.search_best_first(

@@ -1,13 +1,17 @@
-"""Search telemetry subsystem: counters, histograms, spans, trace export —
-a copy of ``repro.core.telemetry`` (pure Python; the port keeps its own
-registry, so the two packages never share counters).
+"""Search telemetry subsystem: counters, histograms, spans, trace export.
 
-One process-wide, dependency-free registry answering the question the flat
-``stats()`` dict cannot: *which stage* of a query spent the comparisons and
-the milliseconds.  In metric-space search the budget currency is distance
-evaluations (the paper's App. F.1 accounting), so the registry is built
-around labeled counters — ``comparisons_total{engine=...,stage=...,q=...}``
-— next to log-spaced latency histograms and a bounded in-memory trace ring.
+It keeps ``repro.core.telemetry``'s registry, names and exposition (the
+CPU tests hold ``metrics_text()`` and ``summary()`` to the JAX package's),
+in its own process-wide registry, so the two packages never share
+counters.  One thing is the port's own: a span is also a range on
+``torch.profiler``'s clock.
+
+The registry answers the question the flat ``stats()`` dict cannot:
+*which stage* of a query spent the comparisons and the milliseconds.  In
+metric-space search the budget currency is distance evaluations (the
+paper's App. F.1 accounting), so the registry is built around labeled
+counters — ``comparisons_total{engine=...,stage=...,q=...}`` — next to
+log-spaced latency histograms and a bounded in-memory trace ring.
 
 Three primitives:
 
@@ -16,25 +20,29 @@ Three primitives:
   (``LATENCY_BUCKETS_S``) so two runs' distributions are always mergeable.
   Use through the convenience entry points ``count`` / ``set_gauge`` /
   ``observe``, which are no-ops (one branch) while telemetry is disabled.
-* ``span(name, **labels)`` — a context manager that times a stage, records
-  the duration into the ``stage_seconds`` histogram (labeled
-  ``stage=name``) and appends a Chrome ``trace_event`` to the trace ring.
-  The span closes — histogram observed, trace event emitted, flagged
-  ``error=True`` — even when the body raises, so exception paths never
-  leak an open span.  ``emit_span`` records a stage whose duration was
-  measured (or apportioned) by the caller — how the beam's three stages,
-  whose comparison counters come back from one search call as extra
-  tensors, get flamegraph rows.
+* ``span(name, **labels)`` — a context manager around a stage.  While
+  telemetry is on it records the stage's wall time into the
+  ``stage_seconds`` histogram (labeled ``stage=name``) and appends a Chrome
+  ``trace_event`` to the trace ring.  While ``torch.profiler`` collects,
+  on or off, it opens a profiler range ``repro_torch.<name>``, which the
+  profiler records as a ``user_annotation`` on the clock of its ATen ops,
+  CUDA runtime calls and kernels.  The span closes — histogram observed,
+  trace event emitted (``error=True`` when its body raised), range ended —
+  even when the body raises.  The span only times; a caller that wants its
+  device work inside the time synchronises before the span closes, and
+  only while telemetry is on, so the profiler sees the program's
+  unsynchronised flow.
 * the trace ring — a fixed-capacity ring of ``trace_event`` dicts,
   exported by ``dump_trace(path)`` as Chrome/Perfetto-loadable JSON.
   Overflow overwrites the oldest events (``dropped`` is reported), so
   sustained traffic holds memory flat.
 
 Global switch: ``enable()`` / ``disable()`` (or env ``REPRO_TELEMETRY=1``).
-Disabled, every entry point returns after a single flag branch — no locks,
-no allocation — and instrumented code paths are behavior-identical
-(bit-exact search ids) to an uninstrumented build: recording only observes
-values the search already computed.
+Disabled, ``count`` / ``set_gauge`` / ``observe`` return after a single
+flag branch, and ``span`` after that flag and the profiler's own flag —
+no locks, no allocation — and instrumented code paths are
+behavior-identical (bit-exact search ids) to an uninstrumented build:
+recording only observes values the search already computed.
 
 Exposition: ``metrics_text()`` renders the registry in Prometheus text
 exposition format (``search_latency_bucket{le=...}``,
@@ -46,17 +54,10 @@ Naming note: this module is ``repro_torch.core.telemetry`` and nothing
 else — ``repro_torch.core.metrics`` is the *dissimilarity* registry
 (euclidean, cosine, ...), an unrelated namespace.
 
-Counter semantics that differ from the JAX package, where its counters
-count compiled programs and the port has nothing to compile:
-
-* ``scan_dispatch_total{regime=...}`` counts CALLS of ``core/scan``'s
-  scans (JAX counts traces of its jitted scans), with regimes ``cuda`` /
-  ``torch`` (the f32 kernel or its plain version, by the tensors' device)
-  and ``cuda_quant`` / ``torch_quant`` (the int8 scan);
-* ``jit_cache_misses_total`` / ``jit_cache_hits_total{scope="server"}``
-  count first-seen and repeated ``(engine, bucket, k)`` keys of
-  ``launch/serve.SearchServer.query`` (JAX pays one compile per miss; the
-  port pays none).
+``scan_dispatch_total{regime=...}`` counts CALLS of ``core/scan``'s scans
+(the JAX package counts traces of its jitted scans), with regimes ``cuda``
+/ ``torch`` (the f32 kernel or its plain version, by the tensors' device)
+and ``cuda_quant`` / ``torch_quant`` (the int8 scan).
 """
 from __future__ import annotations
 
@@ -66,13 +67,16 @@ import threading
 import time
 from typing import Optional
 
+import torch
+from torch.profiler import record_function
+
 __all__ = [
     "LATENCY_BUCKETS_S", "Counter", "Gauge", "Histogram", "Registry",
     "REGISTRY", "enabled", "enable", "disable", "reset",
-    "count", "set_gauge", "observe", "span", "emit_span",
+    "count", "set_gauge", "observe", "span",
     "counter_series", "histogram_series", "counter_total",
     "snapshot", "summary", "metrics_text", "dump_trace",
-    "trace_events", "set_trace_cap", "now_us", "q_label",
+    "trace_events", "set_trace_cap", "q_label",
 ]
 
 #: fixed log-spaced latency buckets (seconds): 100us .. 10s in a
@@ -292,16 +296,6 @@ def trace_events() -> list[dict]:
     return _TRACE.events()
 
 
-def _now_us() -> float:
-    return (time.perf_counter() - _T0) * 1e6
-
-
-def now_us() -> float:
-    """Current trace-clock timestamp (µs since import) — pass as
-    ``emit_span(..., ts_us=...)`` to lay synthesized stages end to end."""
-    return _now_us()
-
-
 def _trace_event(name: str, ts_us: float, dur_us: float, args: dict) -> None:
     _TRACE.append({
         "name": name, "ph": "X", "ts": ts_us, "dur": dur_us,
@@ -344,25 +338,40 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+#: prefix of the spans' ranges in a ``torch.profiler`` trace
+RANGE_PREFIX = "repro_torch."
+#: whether a ``torch.profiler`` (or the autograd profiler) is collecting
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _range(name: str):
+    """The span's profiler range (``user_annotation`` in the trace)."""
+    return record_function(RANGE_PREFIX + name)
+
 
 class _LiveSpan:
     """Plain-class context manager (no generator machinery: this sits on
     the per-query serving path, where the <5% overhead budget lives)."""
 
-    __slots__ = ("name", "labels", "t0", "ts")
+    __slots__ = ("name", "labels", "t0", "ts", "rng")
 
     def __init__(self, name: str, labels: dict):
         self.name, self.labels = name, labels
 
     def __enter__(self):
+        self.rng = _range(self.name) if _profiling() else None
+        if self.rng is not None:
+            self.rng.__enter__()
         self.t0 = time.perf_counter()
         self.ts = (self.t0 - _T0) * 1e6
         return self
 
     def __exit__(self, etype, exc, tb):
         # __exit__ IS the close-on-exception guarantee: the histogram
-        # observation and the trace event land either way
+        # observation, the trace event and the range's end land either way
         dur = time.perf_counter() - self.t0
+        if self.rng is not None:
+            self.rng.__exit__(etype, exc, tb)
         args = dict(self.labels)
         if etype is not None:
             args["error"] = True
@@ -374,30 +383,16 @@ class _LiveSpan:
 def span(name: str, **labels):
     """Time a stage: ``with telemetry.span("dispatch", engine="nsw"): ...``.
 
-    Records the wall time into ``stage_seconds{stage=name, **labels}`` and
-    appends one complete ('X') trace event; on exception the span still
-    closes, with ``error: true`` in the event args."""
-    if not _ENABLED:
-        return _NULL_SPAN
-    return _LiveSpan(name, labels)
-
-
-def emit_span(name: str, dur_s: float, *, ts_us: Optional[float] = None,
-              args: Optional[dict] = None, **labels) -> None:
-    """Record an externally-timed stage (same sinks as ``span``).
-
-    The beam's traversal stages run inside one search call — their
-    comparison counters come back as extra tensors, and the caller
-    apportions the call's wall time across them (flagged ``estimated`` in
-    the event args by the caller)."""
-    if not _ENABLED:
-        return
-    observe("stage_seconds", dur_s, stage=name, **labels)
-    ev_args = dict(labels)
-    if args:
-        ev_args.update(args)
-    ts = ts_us if ts_us is not None else _now_us() - dur_s * 1e6
-    _trace_event(name, ts, dur_s * 1e6, ev_args)
+    Telemetry on: records the wall time into ``stage_seconds{stage=name,
+    **labels}`` and appends one complete ('X') trace event; on exception
+    the span still closes, with ``error: true`` in the event args.  While
+    ``torch.profiler`` collects, on or off, the span is also the profiler
+    range ``repro_torch.<name>``.  Both off: the shared null span."""
+    if _ENABLED:
+        return _LiveSpan(name, labels)
+    if _profiling():
+        return _range(name)
+    return _NULL_SPAN
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ Search (device, torch), each over a whole query batch:
   buffer and a comparison budget; one Python iteration evaluates one node
   for every query still active (the JAX ``while_loop`` under ``vmap``).
 * ``search_beam`` — the level-synchronous beam over the flattened tree as
-  written-out (B, W) tensor ops per level, then one gathered bucket scan.
+  written-out (B, W) tensor ops per level, then one gathered bucket scan;
+  the level loop is the ``traversal`` span (``mode="beam"``) and the scan
+  and its merge the ``bucket_scan`` span (``core/telemetry``), each
+  synchronised at its close only while telemetry is on.
 Selections use stable sorts, which keep ``lax.top_k``'s lowest-index tie
 order.
 
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import metrics as metrics_lib
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.core import telemetry as telem
+from repro_torch.device import DeviceLike, resolve_device, sync
 
 INF = float("inf")
 
@@ -596,67 +600,72 @@ def search_beam(
     c_trav = torch.zeros(B, dtype=torch.int64, device=dev)
     c_cent = torch.zeros(B, dtype=torch.int64, device=dev)
 
-    for _ in range(flat.depth):
-        alive = frontier >= 0
-        nid = frontier.clamp_min(0)
-        d = torch.where(alive, point_dists(nid), INF)
-        c_trav = c_trav + alive.sum(1)
-        # the vantages are dataset points: merge them before pruning
-        vid = perm[nid]
-        acc = alive if valid is None else alive & valid[vid]
+    with telem.span("traversal", engine="infinity", mode="beam"):
+        for _ in range(flat.depth):
+            alive = frontier >= 0
+            nid = frontier.clamp_min(0)
+            d = torch.where(alive, point_dists(nid), INF)
+            c_trav = c_trav + alive.sum(1)
+            # the vantages are dataset points: merge them before pruning
+            vid = perm[nid]
+            acc = alive if valid is None else alive & valid[vid]
+            best_d, best_i = merge(best_d, best_i, torch.where(acc, d, INF),
+                                   torch.where(acc, vid, -1))
+            tau = best_d[:, K - 1:K]
+
+            m = mu[nid]
+            prune_out, prune_in = _prune_rules(d, m, tau, q_inf, q)
+            keep_in_c, keep_out_c = ~prune_in, ~prune_out
+            cin, cout = child_in[nid], child_out[nid]
+            ptr = torch.cat([cin, cout], dim=1)
+            keep = torch.cat([alive & (cin != -1) & keep_in_c,
+                              alive & (cout != -1) & keep_out_c], dim=1)
+            # beam priority: (accumulated path bound, parent distance), with
+            # the subtree radii tightening the 1-triangle bounds (see the JAX
+            # package's _beam_impl for the argument)
+            rin = torch.where(torch.isfinite(rad_in[nid]), rad_in[nid], m)
+            rout = rad_out[nid]
+            lb = torch.cat([(d - rin).clamp_min(0.0),
+                            torch.maximum(m - d, d - rout).clamp_min(0.0)], dim=1)
+            bound = torch.maximum(torch.cat([flb, flb], dim=1), lb)
+            prio = torch.where(keep, bound * 1024.0 + torch.cat([d, d], dim=1), INF)
+
+            # reached leaf buckets: running top-Bcap by priority (query ->
+            # centroid distance in vector mode, each one counted)
+            is_bucket = keep & (ptr <= -2)
+            if centroids is not None:
+                bidx = torch.where(is_bucket, -(ptr + 2), 0)
+                dcent = pair(queries[:, None, :], centroids[bidx])
+                bprio = torch.where(is_bucket, dcent, INF)
+                c_cent = c_cent + is_bucket.sum(1)
+            else:
+                bprio = torch.where(is_bucket, prio, INF)
+            cat_p = torch.cat([bufp, bprio], dim=1)
+            cat_b = torch.cat([buf, -(ptr + 2)], dim=1)
+            bufp, bpos = _smallest(cat_p, Bcap)
+            buf = torch.where(torch.isfinite(bufp), cat_b.gather(1, bpos), -1)
+
+            # next frontier: the W most promising surviving internal children
+            nprio, pos = _smallest(torch.where(keep & (ptr >= 0), prio, INF), W)
+            sel = torch.isfinite(nprio)
+            frontier = torch.where(sel, ptr.gather(1, pos), -1)
+            flb = torch.where(sel, bound.gather(1, pos), 0.0)
+        if telem.enabled():
+            sync(dev)
+    with telem.span("bucket_scan", engine="infinity", mode="beam"):
+        # one gathered scan over every selected bucket
+        rows = torch.where((buf >= 0)[:, :, None], bucket_rows[buf.clamp_min(0)], -1)
+        rows = rows.reshape(B, -1)
+        rvalid = rows >= 0
+        rsafe = rows.clamp_min(0)
+        d = torch.where(rvalid, bucket_dists(rsafe), INF)
+        oid = perm[rsafe]
+        c_buck = rvalid.sum(1)
+        acc = rvalid if valid is None else rvalid & valid[oid]
         best_d, best_i = merge(best_d, best_i, torch.where(acc, d, INF),
-                               torch.where(acc, vid, -1))
-        tau = best_d[:, K - 1:K]
-
-        m = mu[nid]
-        prune_out, prune_in = _prune_rules(d, m, tau, q_inf, q)
-        keep_in_c, keep_out_c = ~prune_in, ~prune_out
-        cin, cout = child_in[nid], child_out[nid]
-        ptr = torch.cat([cin, cout], dim=1)
-        keep = torch.cat([alive & (cin != -1) & keep_in_c,
-                          alive & (cout != -1) & keep_out_c], dim=1)
-        # beam priority: (accumulated path bound, parent distance), with
-        # the subtree radii tightening the 1-triangle bounds (see the JAX
-        # package's _beam_impl for the argument)
-        rin = torch.where(torch.isfinite(rad_in[nid]), rad_in[nid], m)
-        rout = rad_out[nid]
-        lb = torch.cat([(d - rin).clamp_min(0.0),
-                        torch.maximum(m - d, d - rout).clamp_min(0.0)], dim=1)
-        bound = torch.maximum(torch.cat([flb, flb], dim=1), lb)
-        prio = torch.where(keep, bound * 1024.0 + torch.cat([d, d], dim=1), INF)
-
-        # reached leaf buckets: running top-Bcap by priority (query ->
-        # centroid distance in vector mode, each one counted)
-        is_bucket = keep & (ptr <= -2)
-        if centroids is not None:
-            bidx = torch.where(is_bucket, -(ptr + 2), 0)
-            dcent = pair(queries[:, None, :], centroids[bidx])
-            bprio = torch.where(is_bucket, dcent, INF)
-            c_cent = c_cent + is_bucket.sum(1)
-        else:
-            bprio = torch.where(is_bucket, prio, INF)
-        cat_p = torch.cat([bufp, bprio], dim=1)
-        cat_b = torch.cat([buf, -(ptr + 2)], dim=1)
-        bufp, bpos = _smallest(cat_p, Bcap)
-        buf = torch.where(torch.isfinite(bufp), cat_b.gather(1, bpos), -1)
-
-        # next frontier: the W most promising surviving internal children
-        nprio, pos = _smallest(torch.where(keep & (ptr >= 0), prio, INF), W)
-        sel = torch.isfinite(nprio)
-        frontier = torch.where(sel, ptr.gather(1, pos), -1)
-        flb = torch.where(sel, bound.gather(1, pos), 0.0)
-
-    # one gathered scan over every selected bucket
-    rows = torch.where((buf >= 0)[:, :, None], bucket_rows[buf.clamp_min(0)], -1)
-    rows = rows.reshape(B, -1)
-    rvalid = rows >= 0
-    rsafe = rows.clamp_min(0)
-    d = torch.where(rvalid, bucket_dists(rsafe), INF)
-    oid = perm[rsafe]
-    c_buck = rvalid.sum(1)
-    acc = rvalid if valid is None else rvalid & valid[oid]
-    best_d, best_i = merge(best_d, best_i, torch.where(acc, d, INF),
-                           torch.where(acc, oid, -1))
+                               torch.where(acc, oid, -1))
+        if telem.enabled():
+            sync(dev)
     comps = (c_trav + c_cent + c_buck).int()
     out = (best_i.int(), best_d, comps)
     if with_stages:

@@ -39,9 +39,7 @@ sha256-verified last-good snapshot that a failed swap restores.  ``chaos=`` arms
 
 The dispatch span synchronises the device before it closes, so latency,
 ``search_latency`` and the stats percentiles time the search, not its
-launches.  ``jit_cache_*`` counters keep JAX's names and keys ``(engine,
-bucket, k)``; in the port they count first-seen buckets (nothing is
-compiled).  ``capture_roofline`` profiles the engine's batched search
+launches.  ``capture_roofline`` profiles the engine's batched search
 through ``core/profile`` (analytic flops and bytes against the H100's
 peaks, timed by CUDA events).  ``launch/runtime`` puts an admission queue,
 a batcher and an HTTP front before ``query``.
@@ -421,13 +419,8 @@ class SearchServer:
                     [arr, np.broadcast_to(arr[-1:], (Bp - B, arr.shape[1]))]
                 )
             batch = torch.as_tensor(arr, device=self.device)
-        bkey = (self.engine, Bp, int(k))
         with self._state_lock:
-            fresh = bkey not in self._buckets_seen
-            if fresh:
-                self._buckets_seen.add(bkey)
-        telem.count("jit_cache_misses_total" if fresh else "jit_cache_hits_total",
-                    engine=self.engine, scope="server", bucket=Bp)
+            self._buckets_seen.add((self.engine, Bp, int(k)))
         pol = self.policy
         dl = backoff_lib.Deadline(deadline_ms)
         S = max(1, int(self.shards)) if not self.live else 1

@@ -123,8 +123,10 @@ def test_the_pad_decides_the_traversal(servers, data, telemetry_on, batch, beam)
         assert set(got) == {"traversal", "centroid_rank", "bucket_scan", "rerank"}
     else:
         assert "bucket_scan" not in got and got["traversal"] > 0
-    assert ttelem.counter_total("jit_cache_misses_total") + \
-        ttelem.counter_total("jit_cache_hits_total") == 1
+    # the port compiles nothing, so it keeps no compile-cache counters
+    assert not ttelem.counter_series("jit_cache_misses_total")
+    assert not ttelem.counter_series("jit_cache_hits_total")
+    assert [ev["name"] for ev in ttelem.trace_events()].count("dispatch") == 1
 
 
 def test_beam_stage_counters_sum_to_the_served_comparisons(servers, data, telemetry_on):
@@ -134,9 +136,10 @@ def test_beam_stage_counters_sum_to_the_served_comparisons(servers, data, teleme
     got = {lbl["stage"]: v for lbl, v in ttelem.counter_series("comparisons_total")}
     rerank = got.pop("rerank")
     assert sum(got.values()) + rerank == int(res.comparisons.sum())
-    assert {ev["name"] for ev in ttelem.trace_events()} >= {
-        "pad", "dispatch", "embed", "traversal", "centroid_rank", "bucket_scan",
-        "rerank"}
+    # the beam's level loop and bucket scan are timed where they run; the
+    # centroid ranking runs inside each level and is counted only
+    assert {ev["name"] for ev in ttelem.trace_events()} == {
+        "pad", "dispatch", "embed", "traversal", "bucket_scan", "rerank"}
 
 
 CHAOS = {"seed": 4, "rules": [{"site": "search", "kind": "error", "rate": 0.3},

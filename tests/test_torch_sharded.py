@@ -290,7 +290,8 @@ def test_shard_telemetry_keys_on_first_seen(data):
     finally:
         telem.disable()
         telem.reset()
-    assert (miss, hit, masked) == (2, 1, 1)
+    # the port compiles nothing, so it keeps no compile-cache counters
+    assert (miss, hit, masked) == (0, 0, 1)
     assert len(spans) == 3
 
 

@@ -60,8 +60,8 @@ def _spans(t):
     for stage in ("pad", "dispatch", "dispatch"):
         with t.span(stage, engine="brute", bucket=8):
             pass
-    t.emit_span("bucket_scan", 0.002, engine="infinity",
-                args={"comparisons": 40, "estimated": True})
+    with t.span("bucket_scan", engine="infinity", mode="beam"):
+        pass
 
 
 def _everything(t):
@@ -146,7 +146,8 @@ def test_trace_ring_cap_and_dump(tmp_path):
     for t in BOTH:
         t.set_trace_cap(4)
         for i in range(10):
-            t.emit_span(f"s{i}", 0.001, engine="e")
+            with t.span(f"s{i}", engine="e"):
+                pass
     try:
         assert [e["name"] for e in ttelem.trace_events()] == \
                [e["name"] for e in jtelem.trace_events()]
@@ -179,9 +180,10 @@ def test_disabled_telemetry_adds_no_device_sync(monkeypatch, enabled):
     from repro_torch.core import index as tindex
     from repro_torch.core import live as tlive
     from repro_torch.core import search as tsearch
+    from repro_torch.core import vptree as tvptree
 
     calls = []
-    for mod in (tsearch, tlive):
+    for mod in (tsearch, tvptree, tlive):
         monkeypatch.setattr(mod, "sync", lambda dev: calls.append(dev))
     ttelem.enable(enabled)
     rng = np.random.default_rng(0)
@@ -196,3 +198,118 @@ def test_disabled_telemetry_adds_no_device_sync(monkeypatch, enabled):
         idx.search(X[:batch], k=5)
     live.search(X[:8], k=5)
     assert (len(calls) > 0) == enabled
+
+
+# ---------------------------------------------------------------------------
+# the spans on torch.profiler's clock (the port's own; no JAX counterpart)
+# ---------------------------------------------------------------------------
+
+BEAM_CFG = {"proj_sample": 64, "knn_k": 4, "num_hops": 2, "embed_dim": 4, "hidden": (8,),
+            "train_steps": 5, "batch_pairs": 32, "rerank": 16}
+#: the ranges a served batch of 64 leaves, by their parent range (None: top)
+SERVED_RANGES = {"pad": None, "dispatch": None, "embed": "dispatch",
+                 "traversal": "dispatch", "bucket_scan": "dispatch", "rerank": "dispatch"}
+
+
+@pytest.fixture(scope="module")
+def beam_server():
+    """An infinity server whose batches of 64 take the beam."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(300, 8)).astype(np.float32)
+    return tserve.SearchServer(X, engine="infinity", cfg=BEAM_CFG, device="cpu"), X[:64] + 0.01
+
+
+def _profiled_ranges(fn, tmp_path):
+    """Run ``fn`` under ``torch.profiler`` (CPU); returns (fn's result,
+    [(stage, start, end)] of the ``repro_torch.*`` ranges)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = fn()
+    assert not torch._C._autograd._profiler_enabled()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    cut = len(ttelem.RANGE_PREFIX)
+    ranges = [(e["name"][cut:], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+              and e["name"].startswith(ttelem.RANGE_PREFIX)]
+    return res, ranges
+
+
+def test_span_with_telemetry_and_profiler_off_is_the_null_span(monkeypatch):
+    import torch
+
+    calls = []
+    enter = torch.ops.profiler._record_function_enter_new
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new",
+                        lambda *a: calls.append(a[0]) or enter(*a))
+    ttelem.disable()
+    assert ttelem.span("dispatch", engine="brute") is ttelem.span("pad")
+    with ttelem.span("dispatch", engine="brute"):
+        pass
+    assert calls == []
+    # the same call under the profiler opens the range: the patch counts it
+    from torch.profiler import profile
+
+    with profile():
+        with ttelem.span("dispatch", engine="brute"):
+            pass
+    assert calls == ["repro_torch.dispatch"]
+
+
+def test_served_batch_leaves_nested_ranges_and_no_sync(beam_server, monkeypatch, tmp_path):
+    """Telemetry off, under the profiler: one range per span of a served
+    batch of 64 (the beam), nested as the program opens them; no span
+    synchronises (the server's own sync of its answer is not a span's)."""
+    from repro_torch.core import search as tsearch
+    from repro_torch.core import vptree as tvptree
+
+    srv, Q = beam_server
+    calls = []
+    for mod in (tsearch, tvptree):
+        monkeypatch.setattr(mod, "sync", lambda dev: calls.append(dev))
+    ttelem.disable()
+    _, ranges = _profiled_ranges(lambda: srv.query(Q, k=5), tmp_path)
+    assert calls == []
+    assert sorted(name for name, _, _ in ranges) == sorted(SERVED_RANGES)
+    spans = {name: (a, b) for name, a, b in ranges}
+    for name, parent in SERVED_RANGES.items():
+        a, b = spans[name]
+        holders = [p for p, (pa, pb) in spans.items() if p != name and pa <= a and b <= pb]
+        assert holders == ([] if parent is None else [parent]), name
+    order = sorted(SERVED_RANGES, key=lambda n: spans[n][0])
+    assert order == ["pad", "dispatch", "embed", "traversal", "bucket_scan", "rerank"]
+    assert ttelem.trace_events() == []  # the ranges alone: nothing recorded
+
+
+def test_telemetry_measures_the_beam_stages(beam_server):
+    srv, Q = beam_server
+    srv.query(Q, k=5)
+    series = {lbl["stage"]: (lbl, rec) for lbl, rec in ttelem.histogram_series("stage_seconds")}
+    for stage in ("traversal", "bucket_scan"):
+        lbl, rec = series[stage]
+        assert lbl["mode"] == "beam" and rec["count"] == 1 and rec["sum"] > 0
+    assert "centroid_rank" not in series  # counted, not timed
+    assert ttelem.counter_total("comparisons_total", stage="centroid_rank") > 0
+    assert all("estimated" not in ev["args"] for ev in ttelem.trace_events())
+
+
+def test_answers_identical_with_telemetry_and_profiler_on_or_off(beam_server, tmp_path):
+    srv, Q = beam_server
+    got = {}
+    for tel in (False, True):
+        for prof in (False, True):
+            ttelem.enable(tel)
+            if prof:
+                res, ranges = _profiled_ranges(lambda: srv.query(Q, k=5), tmp_path)
+                assert ranges
+            else:
+                res = srv.query(Q, k=5)
+            got[tel, prof] = res
+    ref = got[False, False]
+    for res in got.values():
+        np.testing.assert_array_equal(res.idx, ref.idx)
+        np.testing.assert_array_equal(res.dist, ref.dist)
+        np.testing.assert_array_equal(res.comparisons, ref.comparisons)
