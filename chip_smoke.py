@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero:
    the brute f32 batch and the quantized brute batch; qpath 2048^3 in all
    three modes, on a fixed first sweep operand and on its last (after
    five doublings); the topk kernels at k = 600 (past the shared-memory lists) on
-   one brute batch (512x60000x784: euclidean, manhattan, int8); the
+   one brute batch (512x60000x784: euclidean, manhattan, int8) and the f32
+   one at the live cell's k' = 4096; the
    embedding bag at DeepFM's shapes (the (V, 1) first-order table at
    serve_bulk and serve_p99, the (V, 10) table for the user embeddings of
    retrieval_cand and the infinity retrieval, the launch floor (one id),
@@ -361,6 +362,11 @@ NO_CHEBYSHEV = "none: no chebyshev window on the main path"
 # asks for it
 WIDE_K = 600
 NO_WIDE_K = "none: no engine asks for k > 512 on the main path"
+# the live frozen oversample of the benchmark's fresh5pct cell: k' =
+# pow2ceil(10 + 3 000 deleted) over the 60 000 frozen rows
+LIVE_KPRIME = 4096
+NO_LIVE_KPRIME = ("none: bench cell fmnist784-live-fresh5pct runs it (3 000 of 60 000 "
+                  "rows deleted); no window here deletes that many")
 # the embedding bag and its plain version round the same products and sums
 # in the same order: every bag row must be bit-identical (torch.equal)
 NO_BAG_EXTRAS = "none: served ids carry no padding and no weights"
@@ -682,9 +688,12 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
         ("kNN graph", "manhattan build", "manhattan", S, S, 16, True),
         ("ground truth", "manhattan ground truth", "manhattan", queries, corpus, 10, False),
         ("kNN graph", None, "chebyshev", S, S, 16, True),
-        # k > 512: the running lists live in the output buffers
+        # k > 512: the scan writes its distances out, the select takes the k
+        # smallest of each row
         ("wide k: brute batch", None, "euclidean", slice_q, corpus, WIDE_K, False),
         ("wide k: brute batch", None, "manhattan", slice_q, corpus, WIDE_K, False),
+        ("wide k: live frozen oversample", None, "euclidean", slice_q, corpus,
+         LIVE_KPRIME, False),
     ):
         cube = metric != "euclidean"
         m, n, d = Xq.shape[0], Y.shape[0], Xq.shape[1]
@@ -714,7 +723,9 @@ def phase_kernels(seed: int, ptxas: dict) -> list[dict]:
                                     + (" exclude_self" if excl else "")
                                     + (f" (held to plain on {held} queries)"
                                        if held < m else ""),
-            "path": path, "idle": None if path else (NO_WIDE_K if k > 512 else NO_CHEBYSHEV),
+            "path": path, "idle": None if path else (
+                NO_LIVE_KPRIME if k == LIVE_KPRIME else NO_WIDE_K if k > 512
+                else NO_CHEBYSHEV),
             "counter": "topk/cube" if cube else "topk/f32",
             "source": "src/repro_torch/csrc/topk.cu",
             "replaces": "src/repro/kernels/topk/topk.py:" + ("171" if cube else "123"),
@@ -2834,9 +2845,9 @@ def _int8_library(q, codes, scales, sqn, k: int, valid=None):
 def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
     """The frozen scans a live search asks for with 1 % of the frozen rows
     deleted: the f32 topk at k' and the int8 topk at its shortlist width,
-    over the whole frozen corpus (both past 512: the kernels' global-list
-    path), against their plain versions; a few repetitions, each call
-    takes up to seconds."""
+    over the whole frozen corpus (both past 512: the f32 kernel's select,
+    the int8 kernel's global-list path), against their plain versions; a
+    few repetitions, the int8 call takes up to seconds."""
     import torch
 
     from repro_torch.core import quant as quant_lib
@@ -2856,7 +2867,7 @@ def _oversample_kernel_rows(q, f32: dict, quant: dict) -> list[dict]:
         fail(f"wide topk disagrees with its plain version (max err {err}, ids {same})")
     rows.append({
         "name": "topk", "case": f"live frozen oversample {m}x{n}x{d} k={kf} euclidean "
-                                f"(global lists)",
+                                f"(select)",
         "path": "live brute f32 serve", "idle": None, "counter": "topk/f32",
         "source": "src/repro_torch/csrc/topk.cu",
         "replaces": "src/repro/kernels/topk/topk.py:123",
@@ -2934,7 +2945,7 @@ RUNTIME_REQUESTS = 512  # single-query requests, spread over the clients
 RUNTIME_POLICY = {"max_batch": 64, "flush_ms": 2.0, "capacity": 1024}
 #: live over sharded serves this many batches: with 1 % of the frozen rows
 #: deleted each shard's frozen scan asks for k' = 1024, the f32 topk's
-#: global-list path (PERF.md §6)
+#: select (PERF.md §6)
 LIVE_SHARD_BATCHES = 2
 
 
@@ -3474,7 +3485,7 @@ def _shard_kernel_rows(corpus_t, Qt, cents, live_ops: dict) -> list[dict]:
     })
     log("kernel " + json.dumps(rows[-1]))
 
-    # one shard's frozen scan under live at k' (the global-list selection)
+    # one shard's frozen scan under live at k' (the select)
     Y, kf = live_ops["shard"], live_ops["kf"]
     ns = Y.shape[0]
     od, oi = topk_cuda(q, Y, k=kf, metric="euclidean")

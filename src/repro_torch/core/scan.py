@@ -19,7 +19,9 @@ Each scan call counts ``scan_dispatch_total{regime, metric}`` in
 ``torch`` for the f32 scan, ``cuda_quant`` / ``torch_quant`` for the int8
 one, by the device of the kernel's inputs (a metric without a kernel
 counts ``torch``).  The JAX package counts traces of its jitted scans;
-the port counts calls.
+the port counts calls.  An f32 kernel call at k > 512, which selects from
+the scan's written-out distances (``kernels/topk/topk.py:wide_select``),
+also counts ``topk_wide_select_total{family=matmul|cube}``.
 
 ``torch.topk`` does not reproduce ``lax.top_k``'s lowest-index tie order,
 so every selection here is a STABLE sort of [running best, new], which
@@ -69,6 +71,9 @@ def topk_scan(
     if metric in topk_ops.SUPPORTED:
         telem.count("scan_dispatch_total", regime="cuda" if Q.is_cuda else "torch",
                     metric=metric)
+        if Q.is_cuda and topk_ops.wide_select(k):
+            telem.count("topk_wide_select_total",
+                        family="cube" if metric in topk_ops.CUBE_METRICS else "matmul")
         return topk_ops.topk(Q, Y, k=k, metric=metric, exclude_self=exclude_self,
                              valid=valid, block=block)
     telem.count("scan_dispatch_total", regime="torch", metric=metric)

@@ -57,7 +57,9 @@ else — ``repro_torch.core.metrics`` is the *dissimilarity* registry
 ``scan_dispatch_total{regime=...}`` counts CALLS of ``core/scan``'s scans
 (the JAX package counts traces of its jitted scans), with regimes ``cuda``
 / ``torch`` (the f32 kernel or its plain version, by the tensors' device)
-and ``cuda_quant`` / ``torch_quant`` (the int8 scan).
+and ``cuda_quant`` / ``torch_quant`` (the int8 scan);
+``topk_wide_select_total{family=matmul|cube}`` counts those f32 kernel
+calls at k > 512 that select from the scan's written-out distances.
 """
 from __future__ import annotations
 

@@ -121,12 +121,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* A, int r0, in
 
 // Largest k whose running lists sit in shared memory: rows * k * 8 bytes
 // of dynamic shared memory (128 KB for 32 rows at k = 512), opted in with
-// cudaFuncSetAttribute.  Above it the lists live in global memory (the
-// kernels' GLOBAL_LISTS instance) and are merged by the whole warp
+// cudaFuncSetAttribute.  Above it the int8 scan keeps its lists in global
+// memory (its GLOBAL_LISTS instance), merged by the whole warp
 // (warp_insert_sorted): one lane shifting k entries through L1/L2 one at a
 // time, as the shared lists are, made a 512 x 60000 x 784 scan at k = 600
 // take 485-619 ms on an H100 (NVIDIA H100 80GB HBM3, 700 W) against 6.3 ms
-// for the plain version.
+// for the plain version.  The f32 scan instead writes its distances out
+// and selects the k smallest of each row by radix (topk.cu).
 constexpr int SEL_SMEM_MAX_K = 512;
 // Most column splits of one scan: topk_merge holds one list head per lane.
 // Must match kernels/topk/topk.py:MAX_SPLITS.

@@ -19,12 +19,12 @@ from repro_torch.kernels.topk.ref import (
     topk_quant_ref,
     topk_ref,
 )
-from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda
+from repro_torch.kernels.topk.topk import topk_cuda, topk_quant_cuda, wide_select
 
 SUPPORTED = MATMUL_METRICS + CUBE_METRICS
 
 __all__ = ["topk", "topk_quant", "SUPPORTED", "MATMUL_METRICS", "CUBE_METRICS",
-           "QUANT_METRICS"]
+           "QUANT_METRICS", "wide_select"]
 
 
 @roofline.reports(lambda a: roofline.topk_work(

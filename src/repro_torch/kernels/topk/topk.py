@@ -14,31 +14,41 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.pdist.pdist import METRIC_CODES, regime
 from repro_torch.kernels.topk.ref import QUANT_METRICS, quantize_queries
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _INT8_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 #: the f32 scan's geometry (must match ``csrc/topk.cu``): columns per tile,
-#: the k above which a strip is 32 rows instead of 64
+#: the k above which a strip is 32 rows instead of 64 (up to ``SMEM_MAX_K``)
 TILE_COLS = 128
 WIDE_ROWS_K = 64
 #: the int8 scan's (``csrc/topk_int8.cu``): columns per tile; strips of
 #: 128 rows (8 warps of 16), 32 where the lists take the shared memory
 INT8_TILE_COLS = 128
 #: the largest k whose running lists sit in shared memory
-#: (``csrc/common.cuh:SEL_SMEM_MAX_K``)
+#: (``csrc/common.cuh:SEL_SMEM_MAX_K``); above it the f32 scan writes its
+#: distances out and selects from them (``wide_plan``)
 SMEM_MAX_K = 512
 #: the most column splits (one list head per lane of the merge's warp,
 #: ``csrc/common.cuh:MAX_SPLITS``)
 MAX_SPLITS = 32
-#: the most bytes the splits' (m, S, k) lists may take on the card
+#: the most bytes a scan's scratch may take on the card: the splits' (m, S,
+#: k) lists up to ``SMEM_MAX_K``; above it (f32 scan) one row chunk's (rows,
+#: n) f32 distances, at least one row
 SCRATCH_BYTES = 256 << 20
 
 
 def rows_per_block(k: int) -> int:
     """Query rows per block of the f32 scan: 64, or 32 where the running
-    lists take the shared memory (k > ``WIDE_ROWS_K``)."""
-    return 64 if k <= WIDE_ROWS_K else 32
+    lists take the shared memory (``WIDE_ROWS_K`` < k <= ``SMEM_MAX_K``)."""
+    return 32 if WIDE_ROWS_K < k <= SMEM_MAX_K else 64
+
+
+def wide_select(k: int) -> bool:
+    """Whether the f32 scan writes its distances out and selects the k
+    smallest of each row (``csrc/topk.cu``'s select) instead of keeping
+    running lists: k > ``SMEM_MAX_K``."""
+    return k > SMEM_MAX_K
 
 
 def int8_rows_per_block(k: int) -> int:
@@ -59,8 +69,33 @@ def split_plan(m: int, n: int, k: int, slots: int = 2 * 132, *,
     ``SCRATCH_BYTES``.  S = 1 for n up to one tile.  The defaults are the
     f32 scan's geometry."""
     strips = -(-max(m, 1) // (rows or rows_per_block(k)))
+    most = min(MAX_SPLITS, max(1, SCRATCH_BYTES // (8 * max(m, 1) * k)))
+    return _column_ranges(strips, n, slots, tile_cols, most)
+
+
+def wide_plan(m: int, n: int, slots: int = 2 * 132) -> tuple[int, list[tuple[int, int]]]:
+    """The f32 scan's plan where it writes its distances out (k >
+    ``SMEM_MAX_K``): rows a chunk, and the column ranges of its splits.
+    A chunk's (rows, n) f32 distances fit ``SCRATCH_BYTES`` (a chunk is at
+    least one row, and a whole number of strips unless it is the last);
+    the chunks cover [0, m) in turn.  The splits keep no lists, so they
+    cost no merge: their count only fills the card (``split_plan``'s
+    rule, at most one split a slot)."""
+    strip = rows_per_block(SMEM_MAX_K + 1)
+    chunk = max(1, min(m, SCRATCH_BYTES // (4 * max(n, 1))))
+    if strip <= chunk < m:
+        chunk -= chunk % strip
+    strips = -(-max(chunk, 1) // strip)
+    return chunk, _column_ranges(strips, n, slots, TILE_COLS, max(1, slots))
+
+
+def _column_ranges(strips: int, n: int, slots: int, tile_cols: int,
+                   most: int) -> list[tuple[int, int]]:
+    """Contiguous, ascending ranges of whole tiles (the last ragged) over
+    [0, n), at most ``most``: the count that minimises the tiles the
+    busiest slot scans (waves x tiles a split), the fewest among equals."""
     tiles = max(1, -(-n // tile_cols))
-    most = min(MAX_SPLITS, tiles, max(1, SCRATCH_BYTES // (8 * max(m, 1) * k)))
+    most = min(most, tiles)
     best = (math.inf, 1)
     for splits in range(1, most + 1):
         per = -(-tiles // splits)
@@ -96,9 +131,11 @@ def _copy_width(d: int, *tensors: torch.Tensor) -> int:
 
 
 def _check_k(k: int) -> int:
-    """Any k >= 1: up to 512 the running lists sit in shared memory, above
-    it in global memory (``csrc/common.cuh:SEL_SMEM_MAX_K``); slots past
-    the valid candidates hold (+inf, -1), k > n included."""
+    """Any k >= 1: up to 512 (``csrc/common.cuh:SEL_SMEM_MAX_K``) the
+    running lists sit in shared memory; above it the f32 scan writes its
+    distances out and selects the k smallest of each row (``wide_plan``),
+    and the int8 scan keeps its lists in global memory; slots past the
+    valid candidates hold (+inf, -1), k > n included."""
     k = int(k)
     if k < 1:
         raise ValueError(f"topk kernel takes k >= 1, got {k}")
@@ -125,8 +162,10 @@ def topk_cuda(
     """k nearest rows of Y (n, d) for every row of X (m, d), CUDA f32 ->
     (dists (m, k) f32 ascending, idxs (m, k) int32), by the CUDA kernel:
     the squared norms (matmul family), the scan over ``split_plan``'s
-    column ranges and, with more than one, the merge of their lists, on the
-    current stream — one counted launch."""
+    column ranges and, with more than one, the merge of their lists; above
+    ``SMEM_MAX_K``, for each of ``wide_plan``'s row chunks, the scan into
+    a distance scratch and the select — on the current stream, one counted
+    launch."""
     if metric not in METRIC_CODES:
         raise ValueError(f"topk kernel does not support metric {metric!r}")
     k = _check_k(k)
@@ -144,12 +183,18 @@ def topk_cuda(
     out_i = torch.empty((m, k), dtype=torch.int32, device=X.device)
     if m == 0:
         return out_d, out_i
-    plan = split_plan(m, n, k, _slots(metric, k, X.device))
+    slots = _slots(metric, k, X.device)
+    if wide_select(k):
+        chunk, plan = wide_plan(m, n, slots)
+    else:
+        chunk, plan = m, split_plan(m, n, k, slots)
     splits, width = len(plan), max(1, plan[0][1] - plan[0][0])
     norms = (torch.empty(m + n, dtype=torch.float32, device=X.device)
              if regime(metric) == "matmul" else None)
     part_d = part_i = None
-    if splits > 1:
+    if wide_select(k):
+        part_d = torch.empty(max(1, chunk * n), dtype=torch.float32, device=X.device)
+    elif splits > 1:
         part_d = torch.empty((m, splits, k), dtype=torch.float32, device=X.device)
         part_i = torch.empty((m, splits, k), dtype=torch.int32, device=X.device)
     aligned = d % 4 == 0 and X.data_ptr() % 16 == 0 and Y.data_ptr() % 16 == 0
@@ -157,7 +202,7 @@ def topk_cuda(
     fn = _build.function("topk_f32", _ARGTYPES)
     err = fn(X.data_ptr(), Y.data_ptr(), ptr(vmask), out_d.data_ptr(),
              out_i.data_ptr(), ptr(norms), ptr(part_d), ptr(part_i), m, n, d, k,
-             METRIC_CODES[metric], int(bool(exclude_self)), splits, width,
+             METRIC_CODES[metric], int(bool(exclude_self)), splits, width, chunk,
              int(aligned), _build.stream_handle(X.device))
     _build.check(err, "topk_f32")
     _build.note_launch("topk/f32" if regime(metric) == "matmul" else "topk/cube")

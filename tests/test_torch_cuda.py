@@ -160,7 +160,10 @@ def test_topk_kernel_exclude_self_and_valid(cuda):
 
 
 def _plan(m, n, k, metric, dev):
-    return split_plan(m, n, k, topk_mod._slots(metric, k, dev))
+    slots = topk_mod._slots(metric, k, dev)
+    if topk_mod.wide_select(k):
+        return topk_mod.wide_plan(m, n, slots)[1]
+    return split_plan(m, n, k, slots)
 
 
 def _split_case(case, dev):
@@ -241,8 +244,8 @@ WIDE_K = [512, 513, 600, 2048]
 @pytest.mark.parametrize("metric", ["euclidean", "manhattan", "chebyshev"])
 def test_topk_kernel_wide_k(cuda, metric, k):
     """Any k >= 1: up to 512 the running lists sit in shared memory, above
-    it in the output buffers; k = 3500 exceeds n, whose slots past n hold
-    (+inf, -1)."""
+    it the scan writes its distances out and the select takes each row's k
+    smallest; k = 3500 exceeds n, whose slots past n hold (+inf, -1)."""
     X, Y = _normal((40, 16), 8, cuda), _normal((3000, 16), 9, cuda)
     valid = torch.as_tensor(np.arange(3000) % 11 != 4, device=cuda)
     counter = "topk/f32" if metric == "euclidean" else "topk/cube"
@@ -258,6 +261,122 @@ def test_topk_kernel_wide_k(cuda, metric, k):
     live = int(valid.sum())
     if k > live:
         assert torch.isinf(od[:, live:]).all() and (oi[:, live:] == -1).all()
+
+
+def _wide_select_case(case, dev):
+    """(X, Y, k, exclude_self, valid, metric) of one case of the select
+    above k = 512."""
+    rng = np.random.default_rng(WIDE_SELECT_CASES.index(case))
+    normal = (lambda *shape: torch.as_tensor(
+        rng.normal(size=shape).astype(np.float32), device=dev))
+    if case.startswith("live frozen oversample"):
+        k = int(case.split("k=")[1])
+        valid = torch.as_tensor(rng.random(60000) >= 0.05, device=dev)
+        return normal(512, 784), normal(60000, 784), k, False, valid, "euclidean"
+    if case.startswith("ties straddle the k-th"):
+        base = normal(600, 16)
+        Y = torch.cat([base] * 8)  # row j's copies: j + 600 c, c < 8
+        return base[:40].clone(), Y, int(case.split("k=")[1]), False, None, "sqeuclidean"
+    if case == "k over the alive count":
+        valid = torch.as_tensor(rng.random(3000) < 0.5, device=dev)
+        return normal(70, 24), normal(3000, 24), 2000, False, valid, "euclidean"
+    if case == "k over n, sorted through the output":
+        return normal(20, 24), normal(6000, 24), 7000, False, None, "cosine"
+    if case == "exclude_self":
+        X = normal(2000, 24)
+        return X, X, 600, True, None, "euclidean"
+    if case in ("manhattan k=600", "chebyshev k=600"):
+        metric = case.split()[0]
+        return normal(512, 64), normal(20000, 64), 600, False, None, metric
+    if case.startswith("sort"):
+        # 4096 survivors sort in shared memory, 4097 through the output row
+        return normal(64, 32), normal(9000, 32), int(case.split("k=")[1]), False, None, "dot"
+    raise KeyError(case)
+
+
+WIDE_SELECT_CASES = [
+    "live frozen oversample k=1024", "live frozen oversample k=4096",
+    "ties straddle the k-th k=604", "ties straddle the k-th k=4100",
+    "k over the alive count", "k over n, sorted through the output", "exclude_self",
+    "manhattan k=600", "chebyshev k=600", "sort in shared memory k=4096",
+    "sort through the output k=4097",
+]
+
+
+@pytest.mark.parametrize("case", WIDE_SELECT_CASES)
+def test_topk_kernel_wide_select(cuda, case):
+    """Above k = 512 the scan writes its distances out and the select takes
+    each row's k smallest by (distance, column): against the plain version,
+    one counted launch, ties to the lowest columns across the k-th
+    distance, (+inf, -1) past the alive candidates."""
+    X, Y, k, excl, valid, metric = _wide_select_case(case, cuda)
+    m, n = X.shape[0], Y.shape[0]
+    counter = "topk/cube" if metric in CUBE else "topk/f32"
+    before = _build.launches()[counter]
+    od, oi = topk_cuda(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    torch.cuda.synchronize()
+    assert _build.launches()[counter] == before + 1
+    rd, ri = topk_ref(X, Y, k=k, metric=metric, exclude_self=excl, valid=valid)
+    if metric == "chebyshev":
+        assert torch.equal(od, rd) and torch.equal(oi, ri)
+    else:
+        assert_same_ids(oi, od, ri, rd)
+    live = (n if valid is None else int(valid.sum())) - (1 if excl else 0)
+    assert torch.isfinite(od[:, :min(k, live)]).all()
+    if k > live:
+        assert torch.isinf(od[:, live:]).all() and (oi[:, live:] == -1).all()
+    if valid is not None:
+        assert not (~valid.cpu())[oi[:, :min(k, live)].long().cpu()].any()
+    if excl:
+        assert (oi.cpu() != torch.arange(m)[:, None]).all()
+    if case.startswith("ties"):
+        # every group of 8 equal distances is one row's copies in column
+        # order, the group cut by the k-th distance included: its lowest
+        # copies win
+        ids = oi.cpu().numpy()
+        full = k - k % 8
+        groups = ids[:, :full].reshape(m, -1, 8)
+        assert (groups % 600 == groups[:, :, :1] % 600).all()
+        assert (groups // 600 == np.arange(8)).all()
+        cut = ids[:, full:]
+        assert (cut % 600 == cut[:, :1] % 600).all()
+        assert (cut // 600 == np.arange(k % 8)).all()
+
+
+def test_topk_kernel_wide_select_in_row_chunks(cuda, monkeypatch):
+    """m * n past the scratch cap: the scan and the select run chunk by
+    chunk (here four of 64, 64, 64 and 8 rows), the self-distances masked
+    at each chunk's global rows."""
+    monkeypatch.setattr(topk_mod, "SCRATCH_BYTES", 4 * 70 * 3000)
+    assert topk_mod.wide_plan(200, 3000)[0] == 64
+    X = _normal((3000, 20), 11, cuda)
+    od, oi = topk_cuda(X[:200], X, k=700, metric="euclidean", exclude_self=True)
+    rd, ri = topk_ref(X[:200], X, k=700, metric="euclidean", exclude_self=True)
+    assert_same_ids(oi, od, ri, rd)
+    assert (oi.cpu() != torch.arange(200)[:, None]).all()
+
+
+def test_topk_wide_select_counter(cuda):
+    """``topk_wide_select_total{family}`` counts each scan call that takes
+    the select, never one at k <= 512."""
+    from repro_torch.core import scan as scan_lib
+    from repro_torch.core import telemetry as telem
+
+    X, Y = _normal((16, 8), 1, cuda), _normal((2000, 8), 2, cuda)
+    was = telem.enabled()
+    telem.enable()
+    telem.reset()
+    try:
+        for k, metric in ((10, "euclidean"), (512, "euclidean"), (513, "euclidean"),
+                          (1024, "sqeuclidean"), (600, "manhattan"), (16, "chebyshev")):
+            scan_lib.topk_scan(X, Y, k=k, metric=metric)
+        torch.cuda.synchronize()
+        got = {f: telem.counter_total("topk_wide_select_total", family=f)
+               for f in ("matmul", "cube")}
+    finally:
+        telem.reset()
+        telem.enable(was)
+    assert got == {"matmul": 2.0, "cube": 1.0}
 
 
 @pytest.mark.parametrize("k", WIDE_K + [2500])

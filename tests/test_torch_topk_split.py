@@ -1,21 +1,27 @@
 """The topk kernels' column splits (``kernels/topk/topk.py:split_plan``),
 on the CPU, in the f32 scan's geometry and in the int8 scan's (strips of
-``int8_rows_per_block(k)`` rows, tiles of ``INT8_TILE_COLS`` columns): the
-plan is pure arithmetic, so its contract is checked here, with the merge's
-plain version over split lists; the scans and the merge kernel are held to
-their plain versions on the card (``test_torch_cuda.py::
-test_topk_kernel_splits``, ``::test_topk_int8_kernel_splits``)."""
+``int8_rows_per_block(k)`` rows, tiles of ``INT8_TILE_COLS`` columns), and
+the f32 scan's row chunks and splits above ``SMEM_MAX_K``, where it writes
+its distances out and selects from them (``wide_plan``): the plans are pure
+arithmetic, so their contracts are checked here, with the merge's plain
+version over split lists and the wide path's counter; the scans, the merge
+and the select kernels are held to their plain versions on the card
+(``test_torch_cuda.py::test_topk_kernel_splits``,
+``::test_topk_int8_kernel_splits``, ``::test_topk_kernel_wide_select``)."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import quant as quant_lib  # noqa: E402
+from repro_torch.core import scan as scan_lib  # noqa: E402
+from repro_torch.core import telemetry as telem  # noqa: E402
+from repro_torch.kernels.topk import ops as topk_ops  # noqa: E402
 from repro_torch.kernels.topk import topk as topk_mod  # noqa: E402
 from repro_torch.kernels.topk.ref import merge_splits_ref, topk_quant_ref  # noqa: E402
 from repro_torch.kernels.topk.topk import (  # noqa: E402
-    INT8_TILE_COLS, MAX_SPLITS, SCRATCH_BYTES, TILE_COLS, int8_rows_per_block,
-    rows_per_block, split_plan,
+    INT8_TILE_COLS, MAX_SPLITS, SCRATCH_BYTES, SMEM_MAX_K, TILE_COLS, int8_rows_per_block,
+    rows_per_block, split_plan, wide_plan, wide_select,
 )
 
 # (m, n, k, slots): the main path's shapes (brute batch, kNN graph, ground
@@ -112,8 +118,109 @@ def test_split_plan_caps_the_scratch():
 
 
 def test_rows_per_block_follows_k():
+    """64-row strips up to ``WIDE_ROWS_K``, 32 where the lists take the
+    shared memory, 64 again above ``SMEM_MAX_K``, where the scan keeps no
+    lists and writes its distances out."""
     assert rows_per_block(10) == 64 and rows_per_block(topk_mod.WIDE_ROWS_K) == 64
-    assert rows_per_block(topk_mod.WIDE_ROWS_K + 1) == 32 and rows_per_block(600) == 32
+    assert rows_per_block(topk_mod.WIDE_ROWS_K + 1) == 32
+    assert rows_per_block(SMEM_MAX_K) == 32 and rows_per_block(SMEM_MAX_K + 1) == 64
+    assert rows_per_block(600) == 64 and rows_per_block(4096) == 64
+
+
+def test_wide_select_follows_k():
+    assert not wide_select(10) and not wide_select(SMEM_MAX_K)
+    assert wide_select(SMEM_MAX_K + 1) and wide_select(4096)
+
+
+# (m, n, slots): the live cell's frozen oversample and a live shard's, the
+# ground truth at k > 512 (several chunks), the NSW graph's square shape,
+# ragged and tiny shapes, n = 0, and an n whose one row passes the cap
+WIDE_SHAPES = [
+    (512, 60000, 264), (512, 60000, 132), (512, 30000, 264), (10000, 60000, 264),
+    (60000, 60000, 264), (9, 1000, 264), (40, 3000, 132), (33, 257, 264), (1, 1, 264),
+    (130, 129, 264), (7, 0, 264), (3, 80_000_000, 264),
+]
+
+
+@pytest.mark.parametrize("m,n,slots", WIDE_SHAPES,
+                         ids=["-".join(map(str, s)) for s in WIDE_SHAPES])
+def test_wide_plan_covers_rows_and_columns_once_in_order(m, n, slots):
+    """The chunks cover [0, m) in turn, each a whole number of 64-row
+    strips but the last; the splits cover [0, n) as ``split_plan``'s do,
+    without its cap on their count (no lists to merge), one at most a
+    slot."""
+    chunk, plan = wide_plan(m, n, slots)
+    strip = rows_per_block(SMEM_MAX_K + 1)
+    assert 1 <= chunk <= m
+    starts = list(range(0, m, chunk))
+    ends = [min(m, a + chunk) for a in starts]
+    assert ends[-1] == m and all(b == c for b, c in zip(ends, starts[1:]))
+    assert chunk == m or chunk % strip == 0 or chunk < strip
+    assert plan[0][0] == 0 and plan[-1][1] == n
+    assert 1 <= len(plan) <= max(1, min(slots, -(-n // TILE_COLS)))
+    width = plan[0][1] - plan[0][0]
+    assert width % TILE_COLS == 0 or len(plan) == 1
+    for (a, b), (c, _) in zip(plan, plan[1:]):
+        assert b == c and b - a == width  # contiguous, ascending, equal widths
+    assert all(b > a for a, b in plan) or n == 0
+
+
+@pytest.mark.parametrize("m,n,slots", WIDE_SHAPES,
+                         ids=["-".join(map(str, s)) for s in WIDE_SHAPES])
+def test_wide_plan_scratch_fits_the_cap(m, n, slots):
+    """A chunk's (rows, n) f32 distances never pass ``SCRATCH_BYTES``,
+    except a single row that alone passes it (n > 64 M)."""
+    chunk, _ = wide_plan(m, n, slots)
+    assert 4 * chunk * n <= max(SCRATCH_BYTES, 4 * n)
+    if 4 * n > SCRATCH_BYTES:
+        assert chunk == 1
+
+
+def test_wide_plan_is_one_chunk_at_the_live_shape():
+    """The live cell's frozen oversample (512 x 60 000 at k' = 4 096) is one
+    chunk of 123 MB, and its 8 strips of 64 rows fill the card's slots at
+    one and two blocks an SM, where the lists' plan ran 16 splits of 3 840
+    columns for 16 32-row strips; the ground truth's 10 000 rows take
+    chunks of 1 088."""
+    for slots in (132, 264):
+        chunk, plan = wide_plan(512, 60000, slots)
+        assert chunk == 512 and 4 * 512 * 60000 <= SCRATCH_BYTES
+        strips = 512 // rows_per_block(4096)
+        assert strips * len(plan) >= 0.9 * slots
+        assert -(-strips * len(plan) // slots) == 1  # one wave
+    assert wide_plan(10000, 60000)[0] == 1088
+
+
+@pytest.mark.parametrize("metric,k,family", [
+    ("euclidean", 4096, "matmul"), ("sqeuclidean", 513, "matmul"),
+    ("manhattan", 600, "cube"), ("chebyshev", 600, "cube"), ("euclidean", 512, None),
+    ("euclidean", 10, None), ("manhattan", 16, None),
+])
+def test_wide_select_counter_counts_kernel_calls_past_512(monkeypatch, metric, k, family):
+    """``core/scan.topk_scan`` counts ``topk_wide_select_total{family}`` once
+    for each call that reaches the f32 kernel at k > 512, and never at k <=
+    512 or on the CPU (the kernel's entry is stubbed: no card here)."""
+    class CudaRows:
+        is_cuda = True
+
+    calls = []
+    monkeypatch.setattr(topk_ops, "topk", lambda *a, **kw: calls.append(kw["k"]))
+    was = telem.enabled()
+    telem.enable()
+    telem.reset()
+    try:
+        scan_lib.topk_scan(CudaRows(), CudaRows(), k=k, metric=metric)
+        scan_lib.topk_scan(CudaRows(), CudaRows(), k=k, metric=metric)
+        wide = {f: telem.counter_total("topk_wide_select_total", family=f)
+                for f in ("matmul", "cube")}
+        X = torch.zeros((3, 4))
+        scan_lib.topk_scan(X, X, k=k, metric=metric)  # the CPU: no kernel
+        assert telem.counter_total("topk_wide_select_total") == sum(wide.values())
+    finally:
+        telem.reset()
+        telem.enable(was)
+    assert calls == [k, k, k]
+    assert wide == {f: 2.0 if f == family else 0.0 for f in ("matmul", "cube")}
 
 
 @pytest.mark.parametrize("k", [10, 64, 700])
