@@ -46,9 +46,16 @@ Phases, in order; any failure exits non-zero:
    of 32 (best-first) and one k=1 search (descent).  Launch counters are
    zeroed just before and read just after each window: the build must
    launch the f32 topk (kNN graph), the matmul pdist and six minmax sweeps;
-   the ground-truth scan, the f32 topk; the serving window is reported.
+   the ground-truth scan, the f32 topk; the serving window the beam's
+   level loop (``beam/levels``) once a beam batch, and is reported.
    Beam recall@10 must reach ``FULL_RECALL_FLOOR`` and best-first
-   ``BEST_FIRST_FLOOR``.
+   ``BEST_FIRST_FLOOR``.  Then the beam kernel (``csrc/beam.cu``) against
+   its plain version (``core/vptree.beam_levels``) on the card over the
+   index's flattened tree at the b512 cells' plan (512 queries through
+   Phi, d 32, budget 1024: W 16, Bcap 32; K 256, the rerank's width), at
+   q = inf and q = 2: ``buf`` and the counters equal, ids equal but on
+   near ties, distances within the f32 tolerance; each row prints its
+   time, the plain loop's, and the bound (the bytes the levels read).
 4. Recall parity with the committed JAX figures at the ``bench_infinity``
    config (manifold, n=2048, 512 queries): beam recall@10 within 0.03 of
    0.999 at q=2 and 0.939 at q=inf.  Each build is a counted window: six
@@ -417,7 +424,8 @@ FILTERED_SLACK = 0.05
 INF_FILTERED_JAX = {0.9: 0.4219, 0.5: 0.4078, 0.1: 0.3031, 0.01: 0.2125}
 #: every launch counter, zero unless a window requires otherwise
 COUNTERS = ("topk/f32", "topk/cube", "topk/int8", "pdist/matmul", "pdist/cube",
-            "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag", "bag_backward")
+            "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag", "bag_backward",
+            "beam/levels")
 
 
 def log(msg: str) -> None:
@@ -574,7 +582,7 @@ def _ptxas_summary(report: str) -> dict:
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
                           "merge_kernel", "sqnorm_kernel", "qpath_kernel",
                           "min_splits_kernel", "bag_warp_kernel", "bag_backward_kernel",
-                          "bag_kernel"):
+                          "bag_kernel", "beam_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
                     args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
@@ -1369,6 +1377,9 @@ def _infinity_full_width(label: str, corpus, Qt, cfg: dict, metric: str,
 
     (first, first_s, beam, bf, desc), serve_counts = counted(serve)
     peak = torch.cuda.max_memory_allocated()
+    beams = 1 + -(-Qt.shape[0] // BATCH)  # the first batch and every served one
+    if serve_counts["beam/levels"] != beams:
+        fail(f"{label} serve: launch counts {serve_counts}, want beam/levels == {beams}")
     times, found, _, comps = beam
     row = {
         "corpus": list(corpus.shape), "queries": int(Qt.shape[0]),
@@ -1418,6 +1429,75 @@ def phase_main_path(corpus, Qt, data_s: float, sweeps: dict) -> tuple[dict, dict
         fail(f"full-width best-first recall@10 {main['recall@10_best_first_32']} "
              f"< {BEST_FIRST_FLOOR}")
     return main, state
+
+
+def _beam_rows(state: dict, Qt) -> list[dict]:
+    """The beam's level loop (``csrc/beam.cu``; no TPU kernel behind it: the
+    JAX package's ``_beam_impl`` is jnp under ``jax.jit``) on phase 3's
+    flattened tree at the b512 cells' plan, against its plain version on the
+    card, at q = inf (the index's; its launches are the serving window's)
+    and q = 2.  The bound counts the bytes the levels read as
+    ``tools/profile_beam.py`` does: a scored vantage its row and 24 bytes of
+    node arrays, a ranked bucket its centroid row, the queries and the
+    outputs, at the HBM rate."""
+    import torch
+
+    from repro_torch.core import embedding as embed_lib
+    from repro_torch.core import vptree
+    from repro_torch.kernels.beam.beam import beam_cuda
+
+    index = state["index"]
+    flat, Zf, _ = index._flat_view()
+    with torch.no_grad():
+        Zq = embed_lib.apply(index.phi, Qt[:BATCH]).contiguous()
+    B, d = Zq.shape
+    K = SEARCH_KW["rerank"]
+    W, Bcap = vptree.beam_plan(SEARCH_KW["budget"], depth=flat.depth,
+                               leaf_size=flat.leaf_size, num_nodes=flat.num_nodes,
+                               num_buckets=flat.num_buckets, k=K)
+    rows = []
+    for q in (math.inf, 2.0):
+        kw = dict(q=q, k=K, beam_width=W, bucket_cap=Bcap, X=Zf)
+        name = f"beam levels q={q:g}"
+        got = beam_cuda(flat, Zq, **kw)
+        want = vptree.beam_levels(flat, Zq, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got[2:], want[2:])):
+            fail(f"{name}: the kernel's buckets or counters differ from the plain version's")
+        err, close = close_matmul(got[0], want[0])
+        # ids equal, or the plain distance at that rank ties a neighbour's
+        # (the last rank's partner is not returned)
+        same = got[1] == want[1]
+        tol = MATMUL_ATOL + MATMUL_RTOL * want[0].abs()
+        gap = (want[0][:, 1:] - want[0][:, :-1]).abs() <= tol[:, :-1]
+        near = torch.zeros_like(same)
+        near[:, :-1] |= gap
+        near[:, 1:] |= gap
+        near[:, -1] = True
+        if not (close and bool((same | near).all())):
+            fail(f"{name}: distances off by {err}, ids equal at "
+                 f"{float(same.float().mean())}, some off the near ties")
+        c_trav, c_cent = (float(c.sum()) for c in want[3:])
+        nbytes = (c_trav * (d * 4 + 24) + c_cent * d * 4 + B * d * 4
+                  + B * (K * 12 + Bcap * 8 + 16))
+        row = {
+            "name": "beam", "case": f"{name}: B {B}, d {d}, W {W}, Bcap {Bcap}, K {K}, "
+                                    f"depth {flat.depth}",
+            "path": "full-width serve" if math.isinf(q) else None,
+            "idle": None if math.isinf(q) else "q = 2: phase 3's index is at q = inf",
+            "counter": "beam/levels", "source": "src/repro_torch/csrc/beam.cu",
+            "replaces": "none (src/repro/core/vptree.py:642 _beam_impl is jnp under jax.jit)",
+            "max_abs_err": err, "ids_equal": float(same.float().mean()),
+            "bit_equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+            "vantages": c_trav / B, "centroids": c_cent / B,
+            "ms": cuda_ms(lambda: beam_cuda(flat, Zq, **kw), 20),
+            "plain_ms": cuda_ms(lambda: vptree.beam_levels(flat, Zq, **kw), 3),
+            "library_ms": None,
+            "bound": _bound(0.0, "f32", nbytes),
+        }
+        log("kernel " + json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1542,7 +1622,7 @@ def phase_quant(corpus, Qt, main_state: dict, bench, parity: list[dict]) -> list
     (times, ids, _, comps), counts = counted(
         lambda: _serve(lambda q: index.search(q, k=K, **SEARCH_KW), Qt, n,
                        "infinity+quant"))
-    require(counts, {}, "infinity+quant serve")
+    require(counts, {"beam/levels": batches}, "infinity+quant serve")
     row = row_of("infinity+quant", times, ids, comps, counts,
                  d * SEARCH_KW["rerank"] + 4 * d * w)
     row["overlap@10_with_f32"] = _recall(ids, main_state["found"], K)
@@ -1956,8 +2036,10 @@ def _filtered_brute(eng, engine: str, Qt, masks: dict, specs: dict, truth: dict,
 def _filtered_infinity(index, Qt, masks: dict, specs: dict, truth: dict) -> list[dict]:
     """Phase 3's index with the attribute store attached: beam at one batch
     of ``BATCH`` queries and best-first at 32, at ``INF_FILTER_S``, with
-    phase 3's search knobs; each a counted window that launches nothing
-    (the rerank gathers; the tree walks run in plain torch)."""
+    phase 3's search knobs; each a counted window: the beam launches its
+    level loop's kernel once (``beam/levels``, at the widened K of the
+    filtered rerank), best-first nothing (its tree walk runs in plain
+    torch; the rerank gathers)."""
     import torch
 
     rows = []
@@ -1972,7 +2054,8 @@ def _filtered_infinity(index, Qt, masks: dict, specs: dict, truth: dict) -> list
                 return res, time.perf_counter() - t0
 
             (res, secs), counts = counted(run)
-            require(counts, {}, f"filtered infinity {mode} {name}")
+            require(counts, {"beam/levels": 1} if mode == "beam" else {},
+                    f"filtered infinity {mode} {name}")
             leaked = _check_filtered(res, B, K, mask, f"filtered infinity {mode} {name}")
             row = {"engine": "infinity", "mode": mode, "filter": name,
                    "n_pass": int(mask.sum()), "queries": B,
@@ -3114,7 +3197,7 @@ def _sharded_ivf_and_infinity(corpus, Qt, gt) -> tuple[list[dict], dict, object,
     what = "sharded infinity serve S=2"
     (times, ids, _, comps), counts = counted(lambda: _serve_batches(
         lambda q: srv.index.search(q, k=K, budget=SEARCH_KW["budget"]), Qt))
-    require(counts, {}, what)
+    require(counts, {"beam/levels": 2 * SHARD_BATCHES}, what)
     rows.append(_sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
                              config={"rerank": SEARCH_KW["rerank"],
                                      "budget": SEARCH_KW["budget"]},
@@ -5639,6 +5722,7 @@ def main(argv=None) -> int:
     corpus, Qt, data_s = _full_width_data(args.seed)
     sweeps = {}
     main_path, main_state = phase_main_path(corpus, Qt, data_s, sweeps)
+    rows += _beam_rows(main_state, Qt)
     bench = _bench_data(args.seed)
     parity = phase_parity(bench, sweeps)
     quant = phase_quant(corpus, Qt, main_state, bench, parity)
@@ -5669,6 +5753,7 @@ def main(argv=None) -> int:
 
     windows = {"full-width build": main_path["launches"]["build"],
                "full-width ground truth": main_path["launches"]["ground_truth"],
+               "full-width serve": main_path["launches"]["serve"],
                "manhattan build": manhattan["launches"]["build"],
                "manhattan ground truth": manhattan["launches"]["ground_truth"]}
     windows.update({f"bench-config build q={p['q']}": p["launches"] for p in parity})

@@ -11,8 +11,10 @@ Search (device, torch), each over a whole query batch:
 * ``search_best_first`` — Algorithm 2 with a per-query DFS stack, a top-k
   buffer and a comparison budget; one Python iteration evaluates one node
   for every query still active (the JAX ``while_loop`` under ``vmap``).
-* ``search_beam`` — the level-synchronous beam over the flattened tree as
-  written-out (B, W) tensor ops per level, then one gathered bucket scan;
+* ``search_beam`` — the level-synchronous beam over the flattened tree
+  (on the card one launch of ``kernels/beam``'s ``csrc/beam.cu`` runs every
+  level of the batch, a block per query; on the CPU ``beam_levels``, the
+  written-out (B, W) tensor ops per level), then one gathered bucket scan;
   the level loop is the ``traversal`` span (``mode="beam"``) and the scan
   and its merge the ``bucket_scan`` span (``core/telemetry``), each
   synchronised at its close only while telemetry is on.
@@ -34,6 +36,7 @@ import torch
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import telemetry as telem
 from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.kernels.beam import beam as beam_lib
 
 INF = float("inf")
 
@@ -522,6 +525,122 @@ def _smallest(vals: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tenso
     return vals.gather(1, order), order
 
 
+def _merge(best_d, best_i, ds, ids, K: int):
+    """The K smallest of a running best list and new entries, the list's
+    entries first on ties."""
+    cd = torch.cat([best_d, ds], dim=1)
+    ci = torch.cat([best_i, ids], dim=1)
+    vals, pos = _smallest(cd, K)
+    return vals, ci.gather(1, pos)
+
+
+def _point_dists(queries, X, perm, pair, rows: torch.Tensor) -> torch.Tensor:
+    """Distances of each query to layout rows ``rows`` (B, R): vector mode
+    reads X[rows], rows mode the query's precomputed distance to the row's
+    original id."""
+    if X is None:
+        return queries.gather(1, perm[rows])
+    return pair(queries[:, None, :], X[rows])
+
+
+def beam_levels(
+    flat: FlatVPTree,
+    queries: torch.Tensor,
+    *,
+    q: float,
+    k: int,
+    beam_width: int,
+    bucket_cap: int,
+    X: Optional[torch.Tensor] = None,
+    metric: str = "euclidean",
+    valid: Optional[torch.Tensor] = None,
+):
+    """The ``flat.depth`` levels of the beam over the flattened tree
+    ``flat`` for every query: ``X`` is the layout-ordered corpus (vector
+    mode: distances by the metric's pair form, buckets ranked by their
+    centroid distance); with ``X=None`` each query is a precomputed (n,)
+    row indexed by original id (rows mode: buckets ranked by priority).
+    ``valid`` (n,) bool, by original id, masks acceptance only.
+
+    Returns ``(best_d (B, K) f32, best_i (B, K) int64, buf (B, Bcap) int64,
+    c_trav (B,) int64, c_cent (B,) int64)``: each query's K best vantages by
+    distance, ascending ((+inf, -1) past those found), its Bcap selected
+    leaf buckets (-1 past those found), the vantages it scored and the
+    centroids it ranked.  ``search_beam`` runs this on the CPU; on the card
+    ``kernels/beam``'s kernel computes the same, and this is its plain
+    version."""
+    W, Bcap, K = int(beam_width), int(bucket_cap), int(k)
+    B = queries.shape[0]
+    dev = queries.device
+    q_inf = math.isinf(q)
+    mu, perm = flat.mu, flat.perm.long()
+    child_in, child_out = flat.child_in.long(), flat.child_out.long()
+    rad_in, rad_out = flat.rad_in, flat.rad_out
+    centroids = flat.centroids if X is not None else None
+    pair = None if X is None else metrics_lib.pair_fn(metric)
+
+    frontier = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    frontier[:, 0] = 0
+    flb = torch.zeros((B, W), device=dev)
+    best_d = torch.full((B, K), INF, device=dev)
+    best_i = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+    buf = torch.full((B, Bcap), -1, dtype=torch.int64, device=dev)
+    bufp = torch.full((B, Bcap), INF, device=dev)
+    c_trav = torch.zeros(B, dtype=torch.int64, device=dev)
+    c_cent = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    for _ in range(flat.depth):
+        alive = frontier >= 0
+        nid = frontier.clamp_min(0)
+        d = torch.where(alive, _point_dists(queries, X, perm, pair, nid), INF)
+        c_trav = c_trav + alive.sum(1)
+        # the vantages are dataset points: merge them before pruning
+        vid = perm[nid]
+        acc = alive if valid is None else alive & valid[vid]
+        best_d, best_i = _merge(best_d, best_i, torch.where(acc, d, INF),
+                                torch.where(acc, vid, -1), K)
+        tau = best_d[:, K - 1:K]
+
+        m = mu[nid]
+        prune_out, prune_in = _prune_rules(d, m, tau, q_inf, q)
+        keep_in_c, keep_out_c = ~prune_in, ~prune_out
+        cin, cout = child_in[nid], child_out[nid]
+        ptr = torch.cat([cin, cout], dim=1)
+        keep = torch.cat([alive & (cin != -1) & keep_in_c,
+                          alive & (cout != -1) & keep_out_c], dim=1)
+        # beam priority: (accumulated path bound, parent distance), with
+        # the subtree radii tightening the 1-triangle bounds (see the JAX
+        # package's _beam_impl for the argument)
+        rin = torch.where(torch.isfinite(rad_in[nid]), rad_in[nid], m)
+        rout = rad_out[nid]
+        lb = torch.cat([(d - rin).clamp_min(0.0),
+                        torch.maximum(m - d, d - rout).clamp_min(0.0)], dim=1)
+        bound = torch.maximum(torch.cat([flb, flb], dim=1), lb)
+        prio = torch.where(keep, bound * 1024.0 + torch.cat([d, d], dim=1), INF)
+
+        # reached leaf buckets: running top-Bcap by priority (query ->
+        # centroid distance in vector mode, each one counted)
+        is_bucket = keep & (ptr <= -2)
+        if centroids is not None:
+            bidx = torch.where(is_bucket, -(ptr + 2), 0)
+            dcent = pair(queries[:, None, :], centroids[bidx])
+            bprio = torch.where(is_bucket, dcent, INF)
+            c_cent = c_cent + is_bucket.sum(1)
+        else:
+            bprio = torch.where(is_bucket, prio, INF)
+        cat_p = torch.cat([bufp, bprio], dim=1)
+        cat_b = torch.cat([buf, -(ptr + 2)], dim=1)
+        bufp, bpos = _smallest(cat_p, Bcap)
+        buf = torch.where(torch.isfinite(bufp), cat_b.gather(1, bpos), -1)
+
+        # next frontier: the W most promising surviving internal children
+        nprio, pos = _smallest(torch.where(keep & (ptr >= 0), prio, INF), W)
+        sel = torch.isfinite(nprio)
+        frontier = torch.where(sel, ptr.gather(1, pos), -1)
+        flb = torch.where(sel, bound.gather(1, pos), 0.0)
+    return best_d, best_i, buf, c_trav, c_cent
+
+
 def search_beam(
     flat: FlatVPTree,
     queries: torch.Tensor,
@@ -564,92 +683,15 @@ def search_beam(
     K = int(k)
     B = queries.shape[0]
     dev = queries.device
-    q_inf = math.isinf(q)
-    mu, perm = flat.mu, flat.perm.long()
-    child_in, child_out = flat.child_in.long(), flat.child_out.long()
-    rad_in, rad_out = flat.rad_in, flat.rad_out
+    perm = flat.perm.long()
     bucket_rows = flat.bucket_rows.long()
-    centroids = flat.centroids if X is not None else None
     pair = None if X is None else metrics_lib.pair_fn(metric)
 
-    def point_dists(rows: torch.Tensor) -> torch.Tensor:
-        # rows are layout rows: vector mode reads X[rows], rows mode reads
-        # the query's precomputed distance to the row's original id
-        if X is None:
-            return queries.gather(1, perm[rows])
-        return pair(queries[:, None, :], X[rows])
-
-    def bucket_dists(rows: torch.Tensor) -> torch.Tensor:
-        if codes is None:
-            return point_dists(rows)
-        return pair(queries[:, None, :], codes[rows].float() * scales)
-
-    def merge(best_d, best_i, ds, ids):
-        cd = torch.cat([best_d, ds], dim=1)
-        ci = torch.cat([best_i, ids], dim=1)
-        vals, pos = _smallest(cd, K)
-        return vals, ci.gather(1, pos)
-
-    frontier = torch.full((B, W), -1, dtype=torch.int64, device=dev)
-    frontier[:, 0] = 0
-    flb = torch.zeros((B, W), device=dev)
-    best_d = torch.full((B, K), INF, device=dev)
-    best_i = torch.full((B, K), -1, dtype=torch.int64, device=dev)
-    buf = torch.full((B, Bcap), -1, dtype=torch.int64, device=dev)
-    bufp = torch.full((B, Bcap), INF, device=dev)
-    c_trav = torch.zeros(B, dtype=torch.int64, device=dev)
-    c_cent = torch.zeros(B, dtype=torch.int64, device=dev)
-
     with telem.span("traversal", engine="infinity", mode="beam"):
-        for _ in range(flat.depth):
-            alive = frontier >= 0
-            nid = frontier.clamp_min(0)
-            d = torch.where(alive, point_dists(nid), INF)
-            c_trav = c_trav + alive.sum(1)
-            # the vantages are dataset points: merge them before pruning
-            vid = perm[nid]
-            acc = alive if valid is None else alive & valid[vid]
-            best_d, best_i = merge(best_d, best_i, torch.where(acc, d, INF),
-                                   torch.where(acc, vid, -1))
-            tau = best_d[:, K - 1:K]
-
-            m = mu[nid]
-            prune_out, prune_in = _prune_rules(d, m, tau, q_inf, q)
-            keep_in_c, keep_out_c = ~prune_in, ~prune_out
-            cin, cout = child_in[nid], child_out[nid]
-            ptr = torch.cat([cin, cout], dim=1)
-            keep = torch.cat([alive & (cin != -1) & keep_in_c,
-                              alive & (cout != -1) & keep_out_c], dim=1)
-            # beam priority: (accumulated path bound, parent distance), with
-            # the subtree radii tightening the 1-triangle bounds (see the JAX
-            # package's _beam_impl for the argument)
-            rin = torch.where(torch.isfinite(rad_in[nid]), rad_in[nid], m)
-            rout = rad_out[nid]
-            lb = torch.cat([(d - rin).clamp_min(0.0),
-                            torch.maximum(m - d, d - rout).clamp_min(0.0)], dim=1)
-            bound = torch.maximum(torch.cat([flb, flb], dim=1), lb)
-            prio = torch.where(keep, bound * 1024.0 + torch.cat([d, d], dim=1), INF)
-
-            # reached leaf buckets: running top-Bcap by priority (query ->
-            # centroid distance in vector mode, each one counted)
-            is_bucket = keep & (ptr <= -2)
-            if centroids is not None:
-                bidx = torch.where(is_bucket, -(ptr + 2), 0)
-                dcent = pair(queries[:, None, :], centroids[bidx])
-                bprio = torch.where(is_bucket, dcent, INF)
-                c_cent = c_cent + is_bucket.sum(1)
-            else:
-                bprio = torch.where(is_bucket, prio, INF)
-            cat_p = torch.cat([bufp, bprio], dim=1)
-            cat_b = torch.cat([buf, -(ptr + 2)], dim=1)
-            bufp, bpos = _smallest(cat_p, Bcap)
-            buf = torch.where(torch.isfinite(bufp), cat_b.gather(1, bpos), -1)
-
-            # next frontier: the W most promising surviving internal children
-            nprio, pos = _smallest(torch.where(keep & (ptr >= 0), prio, INF), W)
-            sel = torch.isfinite(nprio)
-            frontier = torch.where(sel, ptr.gather(1, pos), -1)
-            flb = torch.where(sel, bound.gather(1, pos), 0.0)
+        levels = beam_lib.beam_cuda if queries.is_cuda else beam_levels
+        best_d, best_i, buf, c_trav, c_cent = levels(
+            flat, queries, q=q, k=K, beam_width=W, bucket_cap=Bcap, X=X,
+            metric=metric, valid=valid)
         if telem.enabled():
             sync(dev)
     with telem.span("bucket_scan", engine="infinity", mode="beam"):
@@ -658,12 +700,16 @@ def search_beam(
         rows = rows.reshape(B, -1)
         rvalid = rows >= 0
         rsafe = rows.clamp_min(0)
-        d = torch.where(rvalid, bucket_dists(rsafe), INF)
+        if codes is None:
+            d = _point_dists(queries, X, perm, pair, rsafe)
+        else:
+            d = pair(queries[:, None, :], codes[rsafe].float() * scales)
+        d = torch.where(rvalid, d, INF)
         oid = perm[rsafe]
         c_buck = rvalid.sum(1)
         acc = rvalid if valid is None else rvalid & valid[oid]
-        best_d, best_i = merge(best_d, best_i, torch.where(acc, d, INF),
-                               torch.where(acc, oid, -1))
+        best_d, best_i = _merge(best_d, best_i, torch.where(acc, d, INF),
+                                torch.where(acc, oid, -1), K)
         if telem.enabled():
             sync(dev)
     comps = (c_trav + c_cent + c_buck).int()

@@ -71,7 +71,7 @@ def test_build_reports_every_kernel(cuda):
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
                  "min_splits_kernel", "bag_kernel", "bag_warp_kernel", "bag_backward_kernel",
                  "merge_kernel",
-                 "sqnorm_kernel"):
+                 "sqnorm_kernel", "beam_kernel"):
         assert name in info["ptxas"]
 
 
@@ -633,9 +633,10 @@ def test_small_index_build_launches_every_kernel(cuda):
     assert counts == {"topk/f32": 1, "topk/cube": 0, "topk/int8": 0,
                       "pdist/matmul": 1, "pdist/cube": 0, "qpath/minplus": 0,
                       "qpath/minmax": 0, "qpath/logminplus": 4, "bag": 0,
-                      "bag_backward": 0}
+                      "bag_backward": 0, "beam/levels": 0}
     res = index.search(X[:80], k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
+    assert _build.launches()["beam/levels"] == 1  # a batch of 80 takes the beam
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
     assert (res.dist[:, 1:] >= res.dist[:, :-1]).all()
 
