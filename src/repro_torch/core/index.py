@@ -33,7 +33,7 @@ from repro_torch.core import attrs as attrs_lib
 from repro_torch.core import chaos as chaos_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import telemetry as telem
-from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.dist.sharding import Mesh, search_policy
 
 
@@ -499,13 +499,11 @@ class ShardedIndex:
         if not all(alive):
             telem.count("shard_masked_total", sum(1 for a in alive if not a),
                         engine=self.engine)
-        with telem.span("shard_dispatch", engine=self.engine, shards=S):
+        with telem.span("shard_dispatch", engine=self.engine, shards=S, sync=dev):
             idx, dist, comps = self._search_shards(
                 Q, k=k, base=base, rem=rem or 0, traced=traced, mask=mask, sel=sel,
                 alive=alive)
             mdist, midx = scan_lib.merge_topk(dist, idx, k=k)
-            if telem.enabled():
-                sync(dev)
         return SearchResult(midx, mdist, comps.sum(1).to(torch.int32))
 
     def _search_shards(self, Q, *, k: int, base: Optional[int], rem: int,

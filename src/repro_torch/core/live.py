@@ -55,7 +55,7 @@ from repro_torch.core import quant as quant_lib
 from repro_torch.core import scan as scan_lib
 from repro_torch.core import telemetry as telem
 from repro_torch.core.index import SearchResult
-from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.device import DeviceLike, resolve_device
 
 _pow2ceil = scan_lib.pow2ceil
 
@@ -544,10 +544,8 @@ class LiveIndex:
         # answer; rounding up to a power of two bounds the distinct widths
         kf = min(gen.n_frozen, _pow2ceil(k + dead_frozen))
         telem.count("live_scan_total", engine=self.engine, segment="frozen")
-        with telem.span("frozen_scan", engine=self.engine, oversample=kf):
+        with telem.span("frozen_scan", engine=self.engine, oversample=kf, sync=dev):
             fres = gen.frozen.search(Q, k=kf, budget=budget, filter=f_filter)
-            if telem.enabled():
-                sync(dev)
 
         kd = min(k, self.delta_cap)
         delta_valid = alive_d if mask is None else alive_d & mask[gen.n_frozen :]
@@ -558,13 +556,11 @@ class LiveIndex:
             quant = (codes[gen.n_frozen :], scales, sqnorms[gen.n_frozen :])
             kq = min(self.delta_cap, quant_lib.shortlist_width(kd, self.delta_cap))
         telem.count("live_scan_total", engine=self.engine, segment="delta")
-        with telem.span("delta_scan", engine=self.engine, fill=gen.fill):
+        with telem.span("delta_scan", engine=self.engine, fill=gen.fill, sync=dev):
             midx, mdist = _merge_frozen_delta(
                 Q, fres.idx, gen.frozen_X, tomb_f, delta_X, delta_valid, quant,
                 k=k, kd=kd, kq=kq or 0, metric=self.metric,
             )
-            if telem.enabled():
-                sync(dev)
         # frozen work as counted by the engine + one comparison per alive
         # (and passing) delta row, plus the kq exact rescores when quantized
         if mask is None:

@@ -19,18 +19,21 @@ rerank prefilters its candidates on the store's codes.
 
 ``shard_state`` / ``merge_shard_static`` / ``shard_search`` let
 ``ShardedIndex`` run the engine over row shards: each shard's X, Z, Phi's
-params tree, VP tree and flattened beam state, searched as ``search``
-does (no quant store: infinity takes no ``quant=`` shard operand).
+params tree, VP tree and flattened beam state (no quant store: infinity
+takes no ``quant=`` shard operand).  ``search`` and ``shard_search`` only
+resolve their inputs; ``_infinity_search`` is the one body behind both:
+the route, the candidate widths, the traversal and the rerank.
 
 Telemetry (``core/telemetry``): the ``embed``, ``traversal`` and
 ``rerank`` spans here, the beam's ``traversal`` (its level loop) and
 ``bucket_scan`` spans inside ``core/vptree.search_beam``, and
 ``comparisons_total{stage=...}`` per branch, the beam's counted by stage
 (``traversal``, ``centroid_rank``, ``bucket_scan``: the centroid ranking
-runs inside each level, so it has a counter and no span).  Every device
-sync that closes a span and every ``.item()`` that feeds a counter runs
-only while telemetry is enabled, so the disabled path adds no host sync
-to a search; under ``torch.profiler`` the spans are its ranges.
+runs inside each level, so it has a counter and no span); a sharded
+search records them per shard.  Every device sync that closes a span
+(``span(sync=dev)``) and every read-back that feeds a counter runs only
+while telemetry is enabled, so the disabled path adds no host sync to a
+search; under ``torch.profiler`` the spans are its ranges.
 """
 from __future__ import annotations
 
@@ -54,25 +57,6 @@ from repro_torch.core import telemetry as telem
 from repro_torch.core import vptree as vptree_lib
 from repro_torch.core.index import SearchResult
 from repro_torch.device import DeviceLike, resolve_device, sync
-
-
-def _note_stages(engine: str, qv: float, stages: dict) -> None:
-    """Count the beam's comparisons by stage (reads the device counters
-    back — only when telemetry is enabled)."""
-    if not telem.enabled():
-        return
-    qs = telem.q_label(qv)
-    for name, arr in stages.items():
-        telem.count("comparisons_total", int(arr.sum()), engine=engine, stage=name, q=qs)
-
-
-def _note_comps(engine: str, stage: str, qv: float, comps) -> None:
-    """Count a branch's total comparisons (reads the device counter back —
-    only when telemetry is enabled, so the disabled path never blocks)."""
-    if not telem.enabled():
-        return
-    telem.count("comparisons_total", int(comps.sum()), engine=engine,
-                stage=stage, q=telem.q_label(qv))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,79 +265,25 @@ class InfinityIndex:
             budget = index_lib.resolve(budget, sd, "budget")
             max_comparisons = budget if budget is not None else (sd or {}).get("max_comparisons")
         rerank = int(index_lib.resolve(rerank, sd, "rerank", 0))
-        beam_width = index_lib.resolve(beam_width, sd, "beam_width")
-        bucket_cap = index_lib.resolve(bucket_cap, sd, "bucket_cap")
         filter = index_lib.resolve(filter, sd, "filter")
         attrs = getattr(self, "attrs", None)
         mask = filter_lib.resolve_mask(filter, attrs, self.X.shape[0], self.X.device)
         dev = self.X.device
         Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
-        with telem.span("embed", engine="infinity"):
+        with telem.span("embed", engine="infinity", sync=dev):
             Zq = embed_lib.apply(self.phi, Q)
-            if telem.enabled():
-                sync(dev)
-        K = max(k, rerank)
+        sel = None
         if mask is not None and rerank:
-            # widen the candidate stage by the bucketed 1/selectivity; the
-            # fraction is cached per predicate, one host sync each
+            # the fraction is cached per predicate, one host sync each
             sel = filter_lib.bucket_selectivity(
                 filter_lib.cached_selectivity(filter, attrs, mask))
-            K = filter_lib.scaled_width(K, sel, self.X.shape[0])
-        qv = self.config.q
-        if mask is None and self._use_descend(mode, qv, K):
-            with telem.span("traversal", engine="infinity", mode="descend"):
-                bi, _, comps = vptree_lib.descend_infty(self.tree, Zq, X=self.Z,
-                                                        metric="euclidean")
-                if telem.enabled():
-                    sync(dev)
-            _note_comps("infinity", "traversal", qv, comps)
-            idx = bi[:, None]
-        elif self._use_beam(mode, Q.shape[0]):
-            if rerank:
-                # the beam reaches whole buckets: widen the shortlist to at
-                # least the 8x-k rule
-                K = max(K, quant_lib.shortlist_width(k, self.X.shape[0], mult=8))
-            flat, Zf, zc = self._flat_view()
-            codes, scales = zc if zc is not None else (None, None)
-            idx, _, comps, stages = vptree_lib.search_beam(
-                flat, Zq, q=qv, k=K, X=Zf, metric="euclidean",
-                max_comparisons=None if max_comparisons is None else int(max_comparisons),
-                beam_width=beam_width, bucket_cap=bucket_cap, valid=mask,
-                codes=codes, scales=scales, with_stages=True,
-            )
-            _note_stages("infinity", qv, stages)
-        else:
-            with telem.span("traversal", engine="infinity", mode="best_first"):
-                idx, _, comps = vptree_lib.search_best_first(
-                    self.tree, Zq, q=qv, k=K, X=self.Z, metric="euclidean",
-                    max_comparisons=max_comparisons, valid=mask,
-                )
-                if telem.enabled():
-                    sync(dev)
-            _note_comps("infinity", "traversal", qv, comps)
-        if rerank and K > k:
-            with telem.span("rerank", engine="infinity"):
-                idx, dists = self._rerank(Q, idx, k)
-                if telem.enabled():
-                    sync(dev)
-            # each reranked candidate costs one original-metric comparison
-            if telem.enabled():
-                telem.count("comparisons_total", int(K) * int(idx.shape[0]),
-                            engine="infinity", stage="rerank", q=telem.q_label(qv))
-            comps = comps + K
-        else:
-            # the k survivors are scored in the ORIGINAL metric and returned
-            # ascending; comps keeps counting tree visits only
-            idx, dists = self._rerank(Q, idx[:, :k], k)
-        return SearchResult(idx, dists, comps.int())
-
-    @staticmethod
-    def _use_descend(mode: str, q: float, K: int) -> bool:
-        return mode == "descend" or (mode == "auto" and math.isinf(q) and K == 1)
-
-    @staticmethod
-    def _use_beam(mode: str, batch: int) -> bool:
-        return mode == "beam" or (mode == "auto" and batch >= AUTO_BEAM_MIN_BATCH)
+        return _infinity_search(
+            self.tree, self._flat_view, self.Z, self.X, Zq, Q, q=self.config.q,
+            metric=self.config.metric, k=k, mode=mode, rerank=rerank,
+            beam_width=index_lib.resolve(beam_width, sd, "beam_width"),
+            bucket_cap=index_lib.resolve(bucket_cap, sd, "bucket_cap"),
+            plan_budget=max_comparisons, gate_budget=max_comparisons, mask=mask,
+            sel=sel, quant=self.quant)
 
     def _flat_view(self):
         """The lazily-built beam state: the flattened tree, the
@@ -376,22 +306,6 @@ class InfinityIndex:
             cache["zcodes"] = (quant_lib.encode(cache["Zf"], scales), scales)
         zc = cache["zcodes"] if self.quant is not None else None
         return cache["flat"], cache["Zf"], zc
-
-    def _rerank(self, Q: torch.Tensor, idx: torch.Tensor, k: int):
-        """Specific search (F.5): original-metric distances to the
-        candidates, the best k kept.  With a quant store attached, a
-        candidate list wider than ``quant.shortlist_width(k, n)`` is first
-        cut to that width on int8 codes, so only the sub-shortlist reads
-        f32 rows."""
-        k = int(k)
-        if self.quant is not None:
-            w = quant_lib.shortlist_width(k, self.X.shape[0])
-            if idx.shape[1] > w:
-                codes, scales, _ = self.quant.device_view()
-                idx, _ = scan_lib.quant_candidates(
-                    Q, idx, codes, scales, k=w, metric=self.config.metric)
-        return scan_lib.topk_candidates(Q, idx, self.X, k=k,
-                                        metric=self.config.metric)
 
     def memory_bytes(self) -> int:
         """Bytes of every resident tensor: X, Z, Phi, the tree, the quant
@@ -459,48 +373,24 @@ class InfinityIndex:
         mask; ``sel`` the GLOBAL bucketed selectivity that sizes the rerank
         width.  The beam plans its knobs from the base share."""
         plan_budget = budget if budget is not None else static.get("budget")
-        if budget_t is not None:
-            budget = budget_t
-        elif budget is None:
-            budget = static.get("budget")
-        rerank = int(static.get("rerank") or 0)
-        mode = static.get("mode", "auto")
-        Z = state["Z"]
-        Zq = embed_lib.apply_params(state["phi"], Q)
-        K = max(k, rerank)
-        if valid is not None and rerank:
-            K = filter_lib.scaled_width(K, 1.0 if sel is None else sel, Z.shape[0])
         tree = vptree_lib.VPTree(vantage=state["vantage"], mu=state["mu"],
                                  left=state["left"], right=state["right"],
                                  depth=int(static["depth"]))
-        if valid is None and cls._use_descend(mode, static["q"], K):
-            bi, _, comps = vptree_lib.descend_infty(tree, Zq, X=Z, metric="euclidean")
-            idx = bi[:, None]
-        elif cls._use_beam(mode, Q.shape[0]):
-            if rerank:
-                K = max(K, quant_lib.shortlist_width(k, Z.shape[0], mult=8))
-            flat = vptree_lib.FlatVPTree(
-                mu=state["fmu"], child_in=state["fcin"], child_out=state["fcout"],
-                rad_in=state["frin"], rad_out=state["frout"],
-                bucket_rows=state["fbuckets"], centroids=state["fcent"],
-                perm=state["fperm"], depth=int(static["flat_depth"]),
-                leaf_size=int(static["leaf_size"]))
-            idx, _, comps = vptree_lib.search_beam(
-                flat, Zq, q=static["q"], k=K, X=state["Zf"], metric="euclidean",
-                max_comparisons=None if plan_budget is None else int(plan_budget),
-                beam_width=static.get("beam_width"), bucket_cap=static.get("bucket_cap"),
-                valid=valid)
-        else:
-            idx, _, comps = vptree_lib.search_best_first(
-                tree, Zq, q=static["q"], k=K, X=Z, metric="euclidean",
-                max_comparisons=budget, valid=valid)
-        X, metric = state["X"], static["metric"]
-        if rerank and K > k:
-            idx, dists = scan_lib.topk_candidates(Q, idx, X, k=k, metric=metric)
-            comps = comps + K
-        else:
-            idx, dists = scan_lib.topk_candidates(Q, idx[:, :k], X, k=k, metric=metric)
-        return idx, dists, comps.int()
+        flat = vptree_lib.FlatVPTree(
+            mu=state["fmu"], child_in=state["fcin"], child_out=state["fcout"],
+            rad_in=state["frin"], rad_out=state["frout"],
+            bucket_rows=state["fbuckets"], centroids=state["fcent"],
+            perm=state["fperm"], depth=int(static["flat_depth"]),
+            leaf_size=int(static["leaf_size"]))
+        with telem.span("embed", engine="infinity", sync=Q.device):
+            Zq = embed_lib.apply_params(state["phi"], Q)
+        return _infinity_search(
+            tree, lambda: (flat, state["Zf"], None), state["Z"], state["X"], Zq, Q,
+            q=static["q"], metric=static["metric"], k=k, mode=static.get("mode", "auto"),
+            rerank=int(static.get("rerank") or 0), beam_width=static.get("beam_width"),
+            bucket_cap=static.get("bucket_cap"), plan_budget=plan_budget,
+            gate_budget=budget_t if budget_t is not None else plan_budget,
+            mask=valid, sel=sel)
 
     # -------------------------------------------------------------- snapshot
     def snapshot_state(self):
@@ -540,6 +430,103 @@ class InfinityIndex:
             train_history=self.train_history,
             search_defaults=dict(self.search_defaults),
         )
+
+
+def _route(mode: str, q: float, K: int, batch: int, masked: bool) -> str:
+    """The traversal a search takes: ``mode`` itself, or for ``'auto'``
+    descent at q = inf with K = 1, the beam for batches of at least
+    ``AUTO_BEAM_MIN_BATCH``, else best-first.  A filter rules descent out
+    (a single path may hold no passing point)."""
+    if not masked and (mode == "descend" or (mode == "auto" and math.isinf(q) and K == 1)):
+        return "descend"
+    if mode == "beam" or (mode == "auto" and batch >= AUTO_BEAM_MIN_BATCH):
+        return "beam"
+    return "best_first"
+
+
+def _count_comps(q: float, **stages) -> None:
+    """``comparisons_total{engine=infinity, stage=...}`` per stage, from a
+    (B,) device counter (read back) or a host count — only while telemetry
+    is enabled, so the disabled path never blocks."""
+    if not telem.enabled():
+        return
+    qs = telem.q_label(q)
+    for stage, c in stages.items():
+        telem.count("comparisons_total", int(c.sum()) if torch.is_tensor(c) else int(c),
+                    engine="infinity", stage=stage, q=qs)
+
+
+def _rerank(Q: torch.Tensor, idx: torch.Tensor, X: torch.Tensor, *, k: int,
+            metric: str, quant: Optional[quant_lib.QuantStore]):
+    """Specific search (F.5): original-metric distances to the candidates,
+    the best k kept.  With a quant store, a candidate list wider than
+    ``quant.shortlist_width(k, n)`` is first cut to that width on int8
+    codes, so only the sub-shortlist reads f32 rows."""
+    if quant is not None:
+        w = quant_lib.shortlist_width(k, X.shape[0])
+        if idx.shape[1] > w:
+            codes, scales, _ = quant.device_view()
+            idx, _ = scan_lib.quant_candidates(Q, idx, codes, scales, k=w, metric=metric)
+    return scan_lib.topk_candidates(Q, idx, X, k=k, metric=metric)
+
+
+def _infinity_search(tree: vptree_lib.VPTree, beam_state, Z: torch.Tensor,
+                     X: torch.Tensor, Zq: torch.Tensor, Q: torch.Tensor, *, q: float,
+                     metric: str, k: int, mode: str, rerank: int, beam_width, bucket_cap,
+                     plan_budget, gate_budget, mask: Optional[torch.Tensor],
+                     sel: Optional[float],
+                     quant: Optional[quant_lib.QuantStore] = None) -> SearchResult:
+    """The engine's search over one tree, behind ``InfinityIndex.search``
+    and ``shard_search``: route, candidate width K, traversal in embedding
+    space (``Zq``), rerank of the K candidates against ``X`` in the
+    ORIGINAL metric.
+
+    ``beam_state()`` gives the beam's (FlatVPTree, layout rows Zf, their
+    int8 (codes, scales) or None), asked for only when the beam runs.
+    ``plan_budget`` plans the beam's knobs, ``gate_budget`` stops
+    best-first.  ``sel`` is the filter's bucketed selectivity (global when
+    sharded); ``quant`` the store whose codes prefilter the rerank."""
+    k, dev, n = int(k), Zq.device, X.shape[0]
+    K = max(k, rerank)
+    if mask is not None and rerank:
+        # widen the candidate stage by the bucketed 1/selectivity
+        K = filter_lib.scaled_width(K, 1.0 if sel is None else sel, n)
+    route = _route(mode, q, K, Q.shape[0], mask is not None)
+    if route == "beam":
+        if rerank:
+            # the beam reaches whole buckets: widen the shortlist to at
+            # least the 8x-k rule
+            K = max(K, quant_lib.shortlist_width(k, n, mult=8))
+        flat, Zf, zc = beam_state()
+        codes, scales = zc if zc is not None else (None, None)
+        idx, _, comps, stages = vptree_lib.search_beam(
+            flat, Zq, q=q, k=K, X=Zf, metric="euclidean",
+            max_comparisons=None if plan_budget is None else int(plan_budget),
+            beam_width=beam_width, bucket_cap=bucket_cap, valid=mask,
+            codes=codes, scales=scales, with_stages=True,
+        )
+    else:
+        with telem.span("traversal", engine="infinity", mode=route, sync=dev):
+            if route == "descend":
+                bi, _, comps = vptree_lib.descend_infty(tree, Zq, X=Z, metric="euclidean")
+                idx = bi[:, None]
+            else:
+                idx, _, comps = vptree_lib.search_best_first(
+                    tree, Zq, q=q, k=K, X=Z, metric="euclidean",
+                    max_comparisons=gate_budget, valid=mask)
+        stages = {"traversal": comps}
+    _count_comps(q, **stages)
+    if rerank and K > k:
+        with telem.span("rerank", engine="infinity", sync=dev):
+            idx, dists = _rerank(Q, idx, X, k=k, metric=metric, quant=quant)
+        # each reranked candidate costs one original-metric comparison
+        _count_comps(q, rerank=K * idx.shape[0])
+        comps = comps + K
+    else:
+        # the k survivors are scored in the ORIGINAL metric and returned
+        # ascending; comps keeps counting tree visits only
+        idx, dists = _rerank(Q, idx[:, :k], X, k=k, metric=metric, quant=quant)
+    return SearchResult(idx, dists, comps.int())
 
 
 def _phi_validation(phi, S: torch.Tensor, Dq: torch.Tensor, config: IndexConfig) -> dict:

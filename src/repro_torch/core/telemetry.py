@@ -28,10 +28,11 @@ Three primitives:
   profiler records as a ``user_annotation`` on the clock of its ATen ops,
   CUDA runtime calls and kernels.  The span closes — histogram observed,
   trace event emitted (``error=True`` when its body raised), range ended —
-  even when the body raises.  The span only times; a caller that wants its
-  device work inside the time synchronises before the span closes, and
-  only while telemetry is on, so the profiler sees the program's
-  unsynchronised flow.
+  even when the body raises.  ``span(name, sync=dev)`` puts the device
+  work of its body inside the time: while telemetry is on and the body
+  raised nothing, the span synchronises ``dev`` before it reads the
+  clock.  Telemetry off, or only the profiler collecting, nothing is
+  synchronised, so the profiler sees the program's unsynchronised flow.
 * the trace ring — a fixed-capacity ring of ``trace_event`` dicts,
   exported by ``dump_trace(path)`` as Chrome/Perfetto-loadable JSON.
   Overflow overwrites the oldest events (``dropped`` is reported), so
@@ -71,6 +72,8 @@ from typing import Optional
 
 import torch
 from torch.profiler import record_function
+
+from repro_torch.device import sync
 
 __all__ = [
     "LATENCY_BUCKETS_S", "Counter", "Gauge", "Histogram", "Registry",
@@ -355,10 +358,10 @@ class _LiveSpan:
     """Plain-class context manager (no generator machinery: this sits on
     the per-query serving path, where the <5% overhead budget lives)."""
 
-    __slots__ = ("name", "labels", "t0", "ts", "rng")
+    __slots__ = ("name", "labels", "dev", "t0", "ts", "rng")
 
-    def __init__(self, name: str, labels: dict):
-        self.name, self.labels = name, labels
+    def __init__(self, name: str, labels: dict, dev):
+        self.name, self.labels, self.dev = name, labels, dev
 
     def __enter__(self):
         self.rng = _range(self.name) if _profiling() else None
@@ -371,6 +374,8 @@ class _LiveSpan:
     def __exit__(self, etype, exc, tb):
         # __exit__ IS the close-on-exception guarantee: the histogram
         # observation, the trace event and the range's end land either way
+        if etype is None and self.dev is not None:
+            sync(self.dev)
         dur = time.perf_counter() - self.t0
         if self.rng is not None:
             self.rng.__exit__(etype, exc, tb)
@@ -382,16 +387,19 @@ class _LiveSpan:
         return False
 
 
-def span(name: str, **labels):
+def span(name: str, *, sync=None, **labels):
     """Time a stage: ``with telemetry.span("dispatch", engine="nsw"): ...``.
 
     Telemetry on: records the wall time into ``stage_seconds{stage=name,
     **labels}`` and appends one complete ('X') trace event; on exception
-    the span still closes, with ``error: true`` in the event args.  While
-    ``torch.profiler`` collects, on or off, the span is also the profiler
-    range ``repro_torch.<name>``.  Both off: the shared null span."""
+    the span still closes, with ``error: true`` in the event args.  With
+    ``sync=dev`` a body that raised nothing has its work on ``dev``
+    synchronised before the clock is read.  While ``torch.profiler``
+    collects, on or off, the span is also the profiler range
+    ``repro_torch.<name>`` (which never synchronises).  Both off: the
+    shared null span."""
     if _ENABLED:
-        return _LiveSpan(name, labels)
+        return _LiveSpan(name, labels, sync)
     if _profiling():
         return _range(name)
     return _NULL_SPAN

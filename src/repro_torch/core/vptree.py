@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import telemetry as telem
-from repro_torch.device import DeviceLike, resolve_device, sync
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.beam import beam as beam_lib
 
 INF = float("inf")
@@ -687,14 +687,12 @@ def search_beam(
     bucket_rows = flat.bucket_rows.long()
     pair = None if X is None else metrics_lib.pair_fn(metric)
 
-    with telem.span("traversal", engine="infinity", mode="beam"):
+    with telem.span("traversal", engine="infinity", mode="beam", sync=dev):
         levels = beam_lib.beam_cuda if queries.is_cuda else beam_levels
         best_d, best_i, buf, c_trav, c_cent = levels(
             flat, queries, q=q, k=K, beam_width=W, bucket_cap=Bcap, X=X,
             metric=metric, valid=valid)
-        if telem.enabled():
-            sync(dev)
-    with telem.span("bucket_scan", engine="infinity", mode="beam"):
+    with telem.span("bucket_scan", engine="infinity", mode="beam", sync=dev):
         # one gathered scan over every selected bucket
         rows = torch.where((buf >= 0)[:, :, None], bucket_rows[buf.clamp_min(0)], -1)
         rows = rows.reshape(B, -1)
@@ -710,8 +708,6 @@ def search_beam(
         acc = rvalid if valid is None else rvalid & valid[oid]
         best_d, best_i = _merge(best_d, best_i, torch.where(acc, d, INF),
                                 torch.where(acc, oid, -1), K)
-        if telem.enabled():
-            sync(dev)
     comps = (c_trav + c_cent + c_buck).int()
     out = (best_i.int(), best_d, comps)
     if with_stages:

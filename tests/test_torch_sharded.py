@@ -230,6 +230,62 @@ def test_sharded_brute_equals_one_shard(data, shards):
                        .search(Q[:4], k=N // shards + 3).idx)
 
 
+@pytest.fixture(scope="module")
+def one_shard_infinity(data):
+    """One infinity index and 1-shard sharded twins over the same rows
+    (rerank 0 and 16: the shard takes its rerank from the build)."""
+    X, _ = data
+    cfg = {"q": math.inf} | INF_SMALL
+    one = tindex.build("infinity", X, cfg | {"rerank": 0, "attrs": _attrs(N)}, device=CPU)
+    sharded = {r: tindex.build("sharded", X, {"engine": "infinity", "shards": 1,
+                                              "engine_cfg": cfg | {"rerank": r},
+                                              "attrs": _attrs(N)}, device=CPU)
+               for r in (0, 16)}
+    return one, sharded
+
+
+#: route -> (rerank, batch, k), from which auto mode picks that route
+ROUTES = {"descend": (0, 8, 1), "beam": (16, B, K), "best_first": (16, 8, K)}
+
+
+@pytest.mark.parametrize("budget", [None, BUDGET])
+@pytest.mark.parametrize("route,filtered", [  # a filter rules descent out
+    ("descend", False), ("beam", False), ("beam", True), ("best_first", False),
+    ("best_first", True)])
+def test_one_shard_infinity_equals_the_index(data, one_shard_infinity, route,
+                                             filtered, budget):
+    """``shard_search`` and ``search`` share one body: a 1-shard search
+    gives the index's ids, distances and comparisons on every route, and
+    records the same comparison counters and spans (inside its
+    ``shard_dispatch``)."""
+    from repro_torch.core import telemetry as telem
+
+    _, Q = data
+    rerank, batch, k = ROUTES[route]
+    one, sharded = one_shard_infinity
+    kw = {"budget": budget, "filter": FILTER if filtered else None}
+    runs = []
+    telem.reset()
+    telem.enable()
+    try:
+        for search in (lambda: one.search(Q[:batch], k=k, rerank=rerank, **kw),
+                       lambda: sharded[rerank].search(Q[:batch], k=k, **kw)):
+            res = search()
+            comps = telem.counter_series("comparisons_total")
+            spans = sorted((e["name"], e["args"].get("mode", "")) for e in telem.trace_events())
+            runs.append((res, comps, spans))
+            telem.reset()
+    finally:
+        telem.disable()
+        telem.reset()
+    (a, ca, sa), (b, cb, sb) = runs
+    assert torch.equal(a.idx, b.idx) and torch.equal(a.dist, b.dist)
+    assert torch.equal(a.comparisons, b.comparisons)
+    assert ca == cb and any(lbl["stage"] == "traversal" for lbl, _ in ca)
+    assert sorted(sa + [("shard_dispatch", "")]) == sb
+    assert ("traversal", route) in sa and (("rerank", "") in sa) == bool(rerank)
+
+
 def test_sharded_rejects_what_jax_rejects(data):
     X, _ = data
     with pytest.raises(ValueError, match="divide evenly"):

@@ -7,6 +7,7 @@ be identical once the span timings are masked (histogram values the
 caller gives are exact).  A span whose body raises still closes, flagged
 ``error=True``; the disabled path records nothing; the latency ring stays
 bounded."""
+import contextlib
 import json
 import re
 
@@ -160,6 +161,34 @@ def test_trace_ring_cap_and_dump(tmp_path):
             t.set_trace_cap(8192)  # the ring's default
 
 
+@pytest.mark.parametrize("on,raises,synced", [
+    (True, False, ["cpu"]),   # telemetry on: one sync, at the close
+    (False, False, []),       # telemetry off: none
+    (True, True, []),         # the body raised: none, the span still closes
+], ids=["on", "off", "raised"])
+def test_span_syncs_its_device_at_close_only_while_on(monkeypatch, on, raises, synced):
+    """``span(sync=dev)`` synchronises ``dev`` once, after its body and
+    before the clock is read, only while telemetry is on and only when the
+    body raised nothing; the label set is the span's other keywords."""
+    calls = []
+    monkeypatch.setattr(ttelem, "sync", lambda dev: calls.append(str(dev)))
+    ttelem.enable(on)
+    with pytest.raises(RuntimeError) if raises else contextlib.nullcontext():
+        with ttelem.span("rerank", engine="infinity", sync="cpu"):
+            assert calls == []
+            if raises:
+                raise RuntimeError("boom")
+    assert calls == synced
+    with ttelem.span("rerank", engine="infinity"):
+        pass
+    assert calls == synced  # no ``sync=``: never synchronises
+    events = ttelem.trace_events()
+    assert len(events) == (2 if on else 0)
+    assert all("sync" not in e["args"] for e in events)
+    assert [lbl for lbl, _ in ttelem.histogram_series("stage_seconds")] == (
+        [{"stage": "rerank", "engine": "infinity"}] if on else [])
+
+
 def test_latency_ring_is_bounded_like_jax():
     rings = (jserve.LatencyRing(cap=64), tserve.LatencyRing(cap=64))
     rng = np.random.default_rng(0)
@@ -176,14 +205,13 @@ def test_latency_ring_is_bounded_like_jax():
 def test_disabled_telemetry_adds_no_device_sync(monkeypatch, enabled):
     """Every device sync that feeds a counter or a span sits behind
     ``telemetry.enabled()``: a disabled beam / best-first search and a live
-    delta search make none (a served batch's one sync is the server's)."""
+    delta search make none (a served batch's one sync is the server's).
+    Spans synchronise in ``core/telemetry`` (``span(sync=)``)."""
     from repro_torch.core import index as tindex
-    from repro_torch.core import live as tlive
     from repro_torch.core import search as tsearch
-    from repro_torch.core import vptree as tvptree
 
     calls = []
-    for mod in (tsearch, tvptree, tlive):
+    for mod in (ttelem, tsearch):
         monkeypatch.setattr(mod, "sync", lambda dev: calls.append(dev))
     ttelem.enable(enabled)
     rng = np.random.default_rng(0)
@@ -264,11 +292,10 @@ def test_served_batch_leaves_nested_ranges_and_no_sync(beam_server, monkeypatch,
     batch of 64 (the beam), nested as the program opens them; no span
     synchronises (the server's own sync of its answer is not a span's)."""
     from repro_torch.core import search as tsearch
-    from repro_torch.core import vptree as tvptree
 
     srv, Q = beam_server
     calls = []
-    for mod in (tsearch, tvptree):
+    for mod in (ttelem, tsearch):
         monkeypatch.setattr(mod, "sync", lambda dev: calls.append(dev))
     ttelem.disable()
     _, ranges = _profiled_ranges(lambda: srv.query(Q, k=5), tmp_path)
