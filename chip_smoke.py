@@ -47,7 +47,11 @@ Phases, in order; any failure exits non-zero:
    zeroed just before and read just after each window: the build must
    launch the f32 topk (kNN graph), the matmul pdist and six minmax sweeps;
    the ground-truth scan, the f32 topk; the serving window the beam's
-   level loop (``beam/levels``) once a beam batch, and is reported.
+   level loop (``beam/levels``) once a beam batch and the exact re-score
+   (``rescore``) once a search, and is reported.  Every window that
+   reranks or re-scores a candidate list (the infinity and IVF engines,
+   brute with a quant store, a live index's frozen oversample) must count
+   its ``rescore`` launches exactly.
    Beam recall@10 must reach ``FULL_RECALL_FLOOR`` and best-first
    ``BEST_FIRST_FLOOR``.  Then the beam kernel (``csrc/beam.cu``) against
    its plain version (``core/vptree.beam_levels``) on the card over the
@@ -56,6 +60,13 @@ Phases, in order; any failure exits non-zero:
    q = inf and q = 2: ``buf`` and the counters equal, ids equal but on
    near ties, distances within the f32 tolerance; each row prints its
    time, the plain loop's, and the bound (the bytes the levels read).
+   Then the re-score kernel (``csrc/rescore.cu``) against its plain
+   version (``core/scan._plain_candidates``) on the card over phase 3's
+   corpus: 512 lists of each query's 4096 nearest rows with 3000 rows
+   deleted (the live cell's frozen oversample) and of its 256 nearest (the
+   rerank), k 10; ids equal but on near ties, distances within the f32
+   tolerance; each row prints its time, the plain version's and the bound
+   (the distinct alive rows read once).
 4. Recall parity with the committed JAX figures at the ``bench_infinity``
    config (manifold, n=2048, 512 queries): beam recall@10 within 0.03 of
    0.999 at q=2 and 0.939 at q=inf.  Each build is a counted window: six
@@ -372,6 +383,7 @@ NO_WIDE_K = "none: no engine asks for k > 512 on the main path"
 # the live frozen oversample of the benchmark's fresh5pct cell: k' =
 # pow2ceil(10 + 3 000 deleted) over the 60 000 frozen rows
 LIVE_KPRIME = 4096
+LIVE_DELETED = 3000
 NO_LIVE_KPRIME = ("none: bench cell fmnist784-live-fresh5pct runs it (3 000 of 60 000 "
                   "rows deleted); no window here deletes that many")
 # the embedding bag and its plain version round the same products and sums
@@ -425,7 +437,7 @@ INF_FILTERED_JAX = {0.9: 0.4219, 0.5: 0.4078, 0.1: 0.3031, 0.01: 0.2125}
 #: every launch counter, zero unless a window requires otherwise
 COUNTERS = ("topk/f32", "topk/cube", "topk/int8", "pdist/matmul", "pdist/cube",
             "qpath/minplus", "qpath/minmax", "qpath/logminplus", "bag", "bag_backward",
-            "beam/levels")
+            "beam/levels", "rescore")
 
 
 def log(msg: str) -> None:
@@ -582,10 +594,15 @@ def _ptxas_summary(report: str) -> dict:
             for short in ("pdist_kernel", "topk_int8_kernel", "topk_kernel",
                           "merge_kernel", "sqnorm_kernel", "qpath_kernel",
                           "min_splits_kernel", "bag_warp_kernel", "bag_backward_kernel",
-                          "bag_kernel", "beam_kernel"):
+                          "bag_kernel", "beam_kernel", "rescore_kernel"):
                 if short in name:
                     # template arguments: int family / mode, bool lists
-                    args = re.findall(r"L[ib](\d+)E", name.split(short, 1)[1])
+                    rest = name.split(short, 1)[1]
+                    args = re.findall(r"L[ib](\d+)E", rest)
+                    # the re-score kernel's id type: int or long long
+                    ids = re.match(r"I(?:L[ib]\d+E)*([ix])E", rest)
+                    if short == "rescore_kernel" and ids:
+                        args.append({"i": "int32", "x": "int64"}[ids.group(1)])
                     name = short + (f"<{','.join(args)}>" if args else "")
                     break
             continue
@@ -1378,8 +1395,11 @@ def _infinity_full_width(label: str, corpus, Qt, cfg: dict, metric: str,
     (first, first_s, beam, bf, desc), serve_counts = counted(serve)
     peak = torch.cuda.max_memory_allocated()
     beams = 1 + -(-Qt.shape[0] // BATCH)  # the first batch and every served one
-    if serve_counts["beam/levels"] != beams:
-        fail(f"{label} serve: launch counts {serve_counts}, want beam/levels == {beams}")
+    # every search reranks its candidates by the re-score kernel once: the
+    # beam batches, the best-first batch and the descent
+    if (serve_counts["beam/levels"], serve_counts["rescore"]) != (beams, beams + 2):
+        fail(f"{label} serve: launch counts {serve_counts}, want beam/levels == {beams}, "
+             f"rescore == {beams + 2}")
     times, found, _, comps = beam
     row = {
         "corpus": list(corpus.shape), "queries": int(Qt.shape[0]),
@@ -1500,6 +1520,70 @@ def _beam_rows(state: dict, Qt) -> list[dict]:
     return rows
 
 
+def _rescore_rows(state: dict, Qt, seed: int) -> list[dict]:
+    """The exact re-score of gathered candidate lists (``csrc/rescore.cu``;
+    no TPU kernel behind it: the JAX package's ``topk_candidates`` is jnp
+    under ``vmap``) over phase 3's corpus at the cells' shapes, against its
+    plain version (``core/scan._plain_candidates``) on the same card
+    inputs: 512 lists of each query's ``LIVE_KPRIME`` nearest rows with
+    ``LIVE_DELETED`` rows deleted (their ids -1, ~5 % a list: the live
+    cell's frozen oversample) and of its 256 nearest (the rerank's width),
+    k 10.  Ids equal but on near ties, distances within the f32 tolerance.
+    The bound is ``dist/roofline.rescore_work``'s bytes at the HBM rate,
+    each distinct alive row once (L2 serves a row several lists share);
+    ``lists_bound_ms`` reads every list's alive rows from device memory."""
+    import torch
+
+    from repro_torch.core import scan as scan_lib
+    from repro_torch.dist import roofline
+    from repro_torch.kernels.rescore.rescore import rescore_cuda
+
+    X = state["index"].X
+    Q = Qt[:BATCH].contiguous()
+    (n, d), B = X.shape, Q.shape[0]
+    g = torch.Generator(device=X.device).manual_seed(seed)
+    dead = torch.zeros(n, dtype=torch.bool, device=X.device)
+    dead[torch.randperm(n, generator=g, device=X.device)[:LIVE_DELETED]] = True
+    rows = []
+    for C, path, what in (
+            (LIVE_KPRIME, "live brute f32 serve",
+             "the live cell's frozen oversample (the live window's lists are k' 1024 wide)"),
+            (SEARCH_KW["rerank"], "full-width serve", "the rerank")):
+        _, cand = scan_lib.topk_scan(Q, X, k=C, metric="euclidean")
+        cand = cand.long()
+        if C == LIVE_KPRIME:
+            cand = torch.where(dead[cand], -1, cand)
+        cand = cand.contiguous()
+        got = rescore_cuda(Q, cand, X, k=K, metric="euclidean")
+        want = scan_lib._plain_candidates(Q, cand, X, k=K + 1, metric="euclidean")
+        torch.cuda.synchronize()
+        err, close = close_matmul(got[1], want[1][:, :K])
+        same, ids_ok = ids_agree(got[0], want[0], want[1], K)
+        name = f"rescore C={C}"
+        if not (close and ids_ok):
+            fail(f"{name}: distances off by {err}, ids equal at {same}, some off the "
+                 f"near ties")
+        alive = cand[cand >= 0]
+        row = {
+            "name": "rescore", "case": f"{what}: B {B}, C {C}, n {n}, d {d}, k {K}",
+            "path": path, "idle": None, "counter": "rescore",
+            "source": "src/repro_torch/csrc/rescore.cu",
+            "replaces": "none (src/repro/core/scan.py:241 topk_candidates is jnp under vmap)",
+            "max_abs_err": err, "ids_equal": same,
+            "alive_share": alive.numel() / cand.numel(),
+            "unique_rows": int(torch.unique(alive).numel()),
+            "ms": cuda_ms(lambda: rescore_cuda(Q, cand, X, k=K, metric="euclidean"), 20),
+            "plain_ms": cuda_ms(lambda: scan_lib._plain_candidates(
+                Q, cand, X, k=K, metric="euclidean"), 3),
+            "library_ms": None,
+            "bound": _bound(*roofline.rescore_work(cand, d, K)),
+            "lists_bound_ms": 4 * alive.numel() * d / roofline.HBM_BW * 1e3,
+        }
+        log("kernel " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: recall parity at the bench_infinity config
 # ---------------------------------------------------------------------------
@@ -1603,7 +1687,7 @@ def phase_quant(corpus, Qt, main_state: dict, bench, parity: list[dict]) -> list
         fail(f"shortlist width {quant_lib.shortlist_width(K, n)} != {K_QUANT}")
     (times, ids, _, comps), counts = counted(
         lambda: _serve(lambda q: eng.search(q, k=K), Qt, n, "brute int8"))
-    require(counts, {"topk/int8": batches}, "quantized brute serve")
+    require(counts, {"topk/int8": batches, "rescore": batches}, "quantized brute serve")
     rows.append(row_of("brute+quant", times, ids, comps, counts,
                        n * d + 4 * K_QUANT * d))
     log("quant " + json.dumps(rows[-1]))
@@ -1622,7 +1706,7 @@ def phase_quant(corpus, Qt, main_state: dict, bench, parity: list[dict]) -> list
     (times, ids, _, comps), counts = counted(
         lambda: _serve(lambda q: index.search(q, k=K, **SEARCH_KW), Qt, n,
                        "infinity+quant"))
-    require(counts, {"beam/levels": batches}, "infinity+quant serve")
+    require(counts, {"beam/levels": batches, "rescore": batches}, "infinity+quant serve")
     row = row_of("infinity+quant", times, ids, comps, counts,
                  d * SEARCH_KW["rerank"] + 4 * d * w)
     row["overlap@10_with_f32"] = _recall(ids, main_state["found"], K)
@@ -1838,7 +1922,7 @@ def _infinity_retrieval(cfg, model, seed: int, sweeps: list) -> dict:
     (un, index, build_s, res), counts = counted(run)
     total_s = time.perf_counter() - t0
     require(counts, {"bag": 1, "topk/f32": 1, "pdist/matmul": 1,
-                     "qpath/logminplus": NUM_HOPS}, "infinity retrieval")
+                     "qpath/logminplus": NUM_HOPS, "rescore": 1}, "infinity retrieval")
     _check_result(res, INF_USERS, INF_SEARCH["k"], INF_CANDIDATES, "infinity retrieval")
     exact = torch.sort(-(un @ cn.T), dim=1, stable=True).indices[:, :INF_SEARCH["k"]]
     row = {"arch": "deepfm", "shape": "infinity retrieval", "users": INF_USERS,
@@ -1999,18 +2083,22 @@ def _filtered_truth(X, Qt, masks: dict) -> dict:
 def _filtered_brute(eng, engine: str, Qt, masks: dict, specs: dict, truth: dict,
                     counter: str, windows: dict) -> list[dict]:
     """Serve every filter through ``eng`` (one counted window each: one
-    ``counter`` launch per batch, the masked regime) and hold it to the
+    ``counter`` launch per batch, the masked regime, and with the int8
+    first pass one exact re-score of its shortlist) and hold it to the
     filtered truth: f32 under the f32 contract (ids equal except near
     ties), quant at recall >= ``QUANT_BRUTE_FLOOR``; leaked 0."""
     nq = Qt.shape[0]
     batches = -(-nq // BATCH)
+    want = {counter: batches}
+    if counter == "topk/int8":
+        want["rescore"] = batches
     rows = []
     for name, spec in specs.items():
         mask = masks[name]
         (times, ids, dists, comps, leaked), counts = counted(
             lambda: _serve_filtered(lambda q: eng.search(q, k=K, filter=spec), Qt, mask,
                                     f"{engine} {name}"))
-        require(counts, {counter: batches}, f"{engine} {name} serve")
+        require(counts, want, f"{engine} {name} serve")
         windows[f"filtered {engine} serve {name}"] = counts
         gt_d, gt = truth[name]
         row = {"engine": engine, "filter": name, "spec": spec,
@@ -2038,8 +2126,8 @@ def _filtered_infinity(index, Qt, masks: dict, specs: dict, truth: dict) -> list
     of ``BATCH`` queries and best-first at 32, at ``INF_FILTER_S``, with
     phase 3's search knobs; each a counted window: the beam launches its
     level loop's kernel once (``beam/levels``, at the widened K of the
-    filtered rerank), best-first nothing (its tree walk runs in plain
-    torch; the rerank gathers)."""
+    filtered rerank), best-first no tree kernel (its walk runs in plain
+    torch); both rerank by the re-score kernel once (``rescore``)."""
     import torch
 
     rows = []
@@ -2054,8 +2142,8 @@ def _filtered_infinity(index, Qt, masks: dict, specs: dict, truth: dict) -> list
                 return res, time.perf_counter() - t0
 
             (res, secs), counts = counted(run)
-            require(counts, {"beam/levels": 1} if mode == "beam" else {},
-                    f"filtered infinity {mode} {name}")
+            require(counts, {"beam/levels": 1, "rescore": 1} if mode == "beam"
+                    else {"rescore": 1}, f"filtered infinity {mode} {name}")
             leaked = _check_filtered(res, B, K, mask, f"filtered infinity {mode} {name}")
             row = {"engine": "infinity", "mode": mode, "filter": name,
                    "n_pass": int(mask.sum()), "queries": B,
@@ -2401,10 +2489,11 @@ def phase_filtered(X, Qt, main_state: dict, seed: int) -> tuple[dict, list[dict]
     index_lib.attach_store(index, store)
     out["infinity"] = _filtered_infinity(index, Qt, masks, specs, truth)
 
-    # each serve batch: one coarse probe by the pdist kernel (IVF), no
-    # kernel (NSW scores neighbours in the elementwise form)
+    # each serve batch: one coarse probe by the pdist kernel and one exact
+    # re-score of the probed members (IVF), no kernel (NSW scores
+    # neighbours in the elementwise form)
     gt = main_state["gt"]
-    probe = {"pdist/matmul": 1}
+    probe = {"pdist/matmul": 1, "rescore": 1}
     out["ivf_flat"], ivf = _engine_full_width(
         "ivf_flat", IVF_CFG, attrs, X, Qt, gt, masks, specs, truth,
         {"pdist/matmul": IVF_ITERS + 1}, probe, windows)
@@ -2619,6 +2708,9 @@ def _live_brute(corpus, Qh, quant: bool, tmp: str, seed: int) -> tuple[dict, dic
 
     label = "live brute+quant" if quant else "live brute f32"
     counter = "topk/int8" if quant else "topk/f32"
+    # a batch re-scores the frozen oversample; with quant also the frozen
+    # engine's int8 shortlist and the delta's
+    rescores = 3 if quant else 1
     t0 = time.perf_counter()
     srv = SearchServer(corpus, engine="brute", cfg={}, live=True, delta_cap=DELTA_CAP,
                        quant=quant, device=DEVICE)
@@ -2631,7 +2723,8 @@ def _live_brute(corpus, Qh, quant: bool, tmp: str, seed: int) -> tuple[dict, dic
     served = Qh[:LIVE_QUANT_BATCHES * BATCH] if quant else Qh
     n_batches = -(-served.shape[0] // BATCH)
     (times, found), counts = counted(lambda: _serve_all(srv, served))
-    require(counts, {counter: 2 * n_batches}, f"{label} serve")
+    require(counts, {counter: 2 * n_batches, "rescore": rescores * n_batches},
+            f"{label} serve")
     leaked = int(np.isin(found, dead).sum())
     rank0 = _own_rank0(srv, rows, ids)
     if leaked or rank0 != DELTA_CAP:
@@ -3121,7 +3214,7 @@ def _sharded_brute(corpus_t, Qt, gt, gt_d) -> tuple[list[dict], dict]:
         what = f"sharded brute+quant serve S={S}"
         (times, ids, dists, comps), counts = counted(
             lambda: _serve_batches(lambda q: eng.search(q, k=K), Qt))
-        require(counts, {"topk/int8": S * batches}, what)
+        require(counts, {"topk/int8": S * batches, "rescore": S * batches}, what)
         worse = dists > one_qd + MATMUL_ATOL + MATMUL_RTOL * one_qd.abs()
         err, exact = close_matmul(dists, torch.linalg.vector_norm(
             corpus_t[ids.long()] - _served_rows(Qt)[:, None, :], dim=-1))
@@ -3178,7 +3271,7 @@ def _sharded_ivf_and_infinity(corpus, Qt, gt) -> tuple[list[dict], dict, object,
     what = "sharded ivf_flat serve S=2"
     (times, ids, _, comps), counts = counted(lambda: _serve_batches(
         lambda q: srv.index.search(q, k=K), Qt))
-    require(counts, {"pdist/matmul": 2 * SHARD_BATCHES}, what)
+    require(counts, {"pdist/matmul": 2 * SHARD_BATCHES, "rescore": 2 * SHARD_BATCHES}, what)
     rows.append(_sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
                              config=IVF_CFG, build_seconds=srv.build_s))
     windows[what] = counts
@@ -3197,7 +3290,7 @@ def _sharded_ivf_and_infinity(corpus, Qt, gt) -> tuple[list[dict], dict, object,
     what = "sharded infinity serve S=2"
     (times, ids, _, comps), counts = counted(lambda: _serve_batches(
         lambda q: srv.index.search(q, k=K, budget=SEARCH_KW["budget"]), Qt))
-    require(counts, {"beam/levels": 2 * SHARD_BATCHES}, what)
+    require(counts, {"beam/levels": 2 * SHARD_BATCHES, "rescore": 2 * SHARD_BATCHES}, what)
     rows.append(_sharded_row(what, times, ids, comps, gt_s, counts, shards=2,
                              config={"rerank": SEARCH_KW["rerank"],
                                      "budget": SEARCH_KW["budget"]},
@@ -3293,7 +3386,8 @@ def _live_sharded(corpus, Qt, tmp: str, seed: int) -> tuple[dict, dict, dict]:
         s_.delete(dead)
     served = Qh[:LIVE_SHARD_BATCHES * BATCH]
     (times, found), counts = counted(lambda: _serve_all(srv, served))
-    require(counts, {"topk/f32": 3 * LIVE_SHARD_BATCHES}, what)
+    require(counts, {"topk/f32": 3 * LIVE_SHARD_BATCHES, "rescore": LIVE_SHARD_BATCHES},
+            what)
     leaked = int(np.isin(found, dead).sum())
     ref = [one.query(served[s:s + BATCH], k=K + 1) for s in range(0, served.shape[0], BATCH)]
     ref_i = torch.as_tensor(np.concatenate([r.idx for r in ref]))
@@ -5723,6 +5817,7 @@ def main(argv=None) -> int:
     sweeps = {}
     main_path, main_state = phase_main_path(corpus, Qt, data_s, sweeps)
     rows += _beam_rows(main_state, Qt)
+    rows += _rescore_rows(main_state, Qt, args.seed)
     bench = _bench_data(args.seed)
     parity = phase_parity(bench, sweeps)
     quant = phase_quant(corpus, Qt, main_state, bench, parity)

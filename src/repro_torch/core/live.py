@@ -122,16 +122,18 @@ def _merge_frozen_delta(Q, fidx, frozen_X, tomb_f, delta_X, delta_valid, quant=N
 
     ``fidx`` is the frozen engine's oversampled candidate list (its raw
     distances are not used).  Tombstoned candidates become -1; the
-    survivors are re-scored in the ORIGINAL metric (``topk_candidates``)
-    so the two lists are comparable for every engine.  ``quant`` — (delta
-    codes (cap, d) int8, scales, sqnorms) from the slot-aligned quant
-    store — switches the delta scan to the quantized two-stage: the int8
-    first pass keeps ``kq`` slots, the exact f32 rerank keeps ``kd``."""
+    survivors are re-scored in the ORIGINAL metric (``topk_candidates``,
+    the ``rescore`` span) so the two lists are comparable for every engine.
+    ``quant`` — (delta codes (cap, d) int8, scales, sqnorms) from the
+    slot-aligned quant store — switches the delta scan to the quantized
+    two-stage: the int8 first pass keeps ``kq`` slots, the exact f32 rerank
+    keeps ``kd``."""
     n_frozen = frozen_X.shape[0]
     fidx = fidx.long()
     alive = (fidx >= 0) & ~tomb_f[fidx.clamp_min(0)]
     cand = torch.where(alive, fidx, -1)
-    fi, fd = scan_lib.topk_candidates(Q, cand, frozen_X, k=k, metric=metric)
+    with telem.span("rescore", sync=Q.device):
+        fi, fd = scan_lib.topk_candidates(Q, cand, frozen_X, k=k, metric=metric)
 
     if quant is None:
         dd, dpos = scan_lib.topk_scan(Q, delta_X, k=kd, metric=metric,

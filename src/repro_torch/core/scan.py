@@ -11,8 +11,11 @@ form for jaccard and correlation.
 ``topk_scan_quant`` is the int8 twin over a ``core/quant.QuantStore``
 view: the euclidean family runs the int8 kernel's function (JAX's
 ``impl="pallas"``: the query is quantised too), any other metric the
-blocked merge over one dequantised block at a time.  ``quant_candidates``
-scores gathered candidate lists on dequantised codes.
+blocked merge over one dequantised block at a time.  ``topk_candidates``
+re-scores gathered candidate lists exactly: on the card, for the metrics
+with a topk kernel, one launch of ``kernels/rescore``; otherwise the plain
+gather, pair form and stable sort.  ``quant_candidates`` scores gathered
+candidate lists on dequantised codes.
 
 Each scan call counts ``scan_dispatch_total{regime, metric}`` in
 ``core/telemetry`` (a no-op while telemetry is disabled): ``cuda`` /
@@ -36,6 +39,7 @@ import torch
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core import quant as quant_lib
 from repro_torch.core import telemetry as telem
+from repro_torch.kernels.rescore import rescore as rescore_kernel
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk.ref import DEFAULT_BLOCK, blocked_topk
 
@@ -150,11 +154,31 @@ def topk_candidates(
     (B, k) int32 dataset ids or -1, dists (B, k) ascending).  The batched
     form of the JAX package's per-query ``topk_candidates`` under ``vmap``:
     rows are gathered, scored with the metric's pair form, and selected
-    with a stable sort, so ties go to the earlier candidate position.  The
-    (B, C, d) gather is taken a chunk of queries at a time (``in_chunks``)."""
+    with a stable sort, so ties go to the earlier candidate position.  An
+    id outside [0, n), -1 or past the corpus, is no candidate: it scores
+    +inf and reads no row, on either path.
+
+    On the card, for the metrics of ``kernels/topk.SUPPORTED``, one launch
+    of ``kernels/rescore`` does it all, each alive row read once and no
+    (B, C, d) block written; it raises where it cannot.  Other metrics and
+    CPU tensors take the plain version (``_plain_candidates``)."""
+    if Q.is_cuda and metric in rescore_kernel.SUPPORTED:
+        return rescore_kernel.rescore_cuda(Q.float().contiguous(), cand.contiguous(),
+                                           X.float().contiguous(), k=k, metric=metric)
+    return _plain_candidates(Q, cand, X, k=k, metric=metric)
+
+
+def _plain_candidates(Q: torch.Tensor, cand: torch.Tensor, X: torch.Tensor, *,
+                      k: int, metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_candidates``' plain version, on any device: the (B, C, d)
+    gather a chunk of queries at a time (``in_chunks``), the pair form and
+    the stable sort; the reference the kernel is held to."""
+    n = X.shape[0]
+
     def select(q, c):
-        return _select_candidates(q, c, X[c.long().clamp_min(0)].float(), k=k,
-                                  metric=metric)
+        c = c.long()
+        c = torch.where((c >= 0) & (c < n), c, -1)
+        return _select_candidates(q, c, X[c.clamp_min(0)].float(), k=k, metric=metric)
 
     return in_chunks(select, 4 * cand.shape[1] * X.shape[1], Q, cand)
 

@@ -24,7 +24,10 @@ the formulas below, which ``chip_smoke.py``'s bounds are built from too:
   output;
 * the bag's backward: two f32 instructions per (bag, id, column) (the
   product and its add); bytes the ids (and weights), the output gradient
-  g and the dense (V, D) table gradient written once.
+  g and the dense (V, D) table gradient written once;
+* rescore (the exact top-k of gathered candidate lists): two f32
+  instructions per (alive candidate, column); bytes the distinct alive
+  rows read once, the queries, the ids and the (B, k) lists written.
 
 A kernel's plain version (the CPU path) runs with the torch dispatch
 modes suspended, so ``core/profile``'s counters of the torch work outside
@@ -193,6 +196,19 @@ def bag_backward_work(ids, D: int, num_rows: int, *, weighted: bool) -> tuple:
     B, S = ids.shape
     return (2 * B * S * D, "f32_instr",
             4 * B * S * (2 if weighted else 1) + 4 * B * D + 4 * num_rows * D)
+
+
+def rescore_work(cand, d: int, k: int) -> tuple:
+    """The exact top-k of (B, C) gathered candidate lists over rows of d
+    floats: every alive candidate (id >= 0) scored; bytes the distinct
+    alive rows read once (a row several lists share counts once, as the
+    bag's sectors do), the queries, the ids and the (B, k) lists; this
+    reads the ids back, so it runs only under a capture."""
+    B = cand.shape[0]
+    alive = cand[cand >= 0]
+    rows = int(torch.unique(alive).numel())
+    return (2 * alive.numel() * d, "f32_instr",
+            4 * rows * d + 4 * B * d + cand.numel() * cand.element_size() + 8 * B * k)
 
 
 # ---------------------------------------------------------------------------

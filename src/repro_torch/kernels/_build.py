@@ -35,7 +35,7 @@ _LAUNCHES: dict[str, int] = {
     "topk/f32": 0, "topk/cube": 0, "topk/int8": 0,
     "pdist/matmul": 0, "pdist/cube": 0,
     "qpath/minplus": 0, "qpath/minmax": 0, "qpath/logminplus": 0,
-    "bag": 0, "bag_backward": 0, "beam/levels": 0,
+    "bag": 0, "bag_backward": 0, "beam/levels": 0, "rescore": 0,
 }
 #: the loaded library and what building it took
 _STATE: dict = {"lib": None, "info": None}

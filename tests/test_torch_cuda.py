@@ -71,7 +71,7 @@ def test_build_reports_every_kernel(cuda):
     for name in ("pdist_kernel", "topk_kernel", "topk_int8_kernel", "qpath_kernel",
                  "min_splits_kernel", "bag_kernel", "bag_warp_kernel", "bag_backward_kernel",
                  "merge_kernel",
-                 "sqnorm_kernel", "beam_kernel"):
+                 "sqnorm_kernel", "beam_kernel", "rescore_kernel"):
         assert name in info["ptxas"]
 
 
@@ -633,10 +633,11 @@ def test_small_index_build_launches_every_kernel(cuda):
     assert counts == {"topk/f32": 1, "topk/cube": 0, "topk/int8": 0,
                       "pdist/matmul": 1, "pdist/cube": 0, "qpath/minplus": 0,
                       "qpath/minmax": 0, "qpath/logminplus": 4, "bag": 0,
-                      "bag_backward": 0, "beam/levels": 0}
+                      "bag_backward": 0, "beam/levels": 0, "rescore": 0}
     res = index.search(X[:80], k=5, rerank=32, budget=512)
     torch.cuda.synchronize()
     assert _build.launches()["beam/levels"] == 1  # a batch of 80 takes the beam
+    assert _build.launches()["rescore"] == 1  # and its rerank the re-score kernel
     assert res.idx.shape == (80, 5) and (res.idx >= 0).all()
     assert (res.dist[:, 1:] >= res.dist[:, :-1]).all()
 
@@ -929,7 +930,9 @@ def test_filtered_brute_on_card_is_the_sub_corpus_scan(cuda, quant, s):
 @pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean"])
 def test_chunked_candidate_gather_on_card_matches_one_chunk(cuda, monkeypatch, metric):
     """The candidate gather split over queries (``scan.in_chunks``) gives
-    the one-chunk answer bit for bit, f32 and on codes."""
+    the one-chunk answer bit for bit, f32 and on codes.  The f32 lists are
+    the plain version's (``topk_candidates`` on the card is the re-score
+    kernel, which takes no chunks)."""
     from repro_torch.core import scan as scan_lib
 
     X, Q, _ = _filter_data(3000, seed=6)
@@ -937,10 +940,10 @@ def test_chunked_candidate_gather_on_card_matches_one_chunk(cuda, monkeypatch, m
     g = torch.Generator(device=cuda).manual_seed(0)
     cand = torch.randint(-1, X.shape[0], (Q.shape[0], 700), generator=g, device=cuda)
     codes, scales, _ = quant_lib.QuantStore.build(Xt).device_view()
-    whole = (scan_lib.topk_candidates(Qt, cand, Xt, k=10, metric=metric),
+    whole = (scan_lib._plain_candidates(Qt, cand, Xt, k=10, metric=metric),
              scan_lib.quant_candidates(Qt, cand, codes, scales, k=40, metric=metric))
     monkeypatch.setattr(scan_lib, "GATHER_BYTES", 5 * 4 * 700 * X.shape[1])
-    parts = (scan_lib.topk_candidates(Qt, cand, Xt, k=10, metric=metric),
+    parts = (scan_lib._plain_candidates(Qt, cand, Xt, k=10, metric=metric),
              scan_lib.quant_candidates(Qt, cand, codes, scales, k=40, metric=metric))
     for w, p in zip(whole, parts):
         assert torch.equal(w[0], p[0]) and torch.equal(w[1], p[1])

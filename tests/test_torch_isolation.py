@@ -52,7 +52,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.search\n"
         "import repro_torch.kernels.topk, repro_torch.kernels.pdist, "
-        "repro_torch.kernels.qpath, repro_torch.kernels.bag\n"
+        "repro_torch.kernels.qpath, repro_torch.kernels.bag, repro_torch.kernels.rescore\n"
         "import repro_torch.kernels.bag.ops, repro_torch.models.recsys, "
         "repro_torch.configs, repro_torch.configs.deepfm, "
         "repro_torch.train.train_step, repro_torch.data.tokens\n"
