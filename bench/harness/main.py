@@ -159,7 +159,8 @@ def execute(cell, *, seed: int, seconds: float, trace: bool, device: torch.devic
             prof["batches"] = w1["batches"]
         run.profile = prof
         w2, spans = _telemetry_half(lambda: window(seconds / 2, first=w1["next"]))
-        run.telemetry = {"spans": spans, "walls": w2["walls"], "batches": w2["batches"]}
+        run.telemetry = {"spans": spans, "walls": w2["walls"], "batches": w2["batches"],
+                         "attempted": w2["attempted"], "failed": w2["failed"]}
         parts = [w1, w2]
     for p in parts:
         answers.extend(p["answers"])

@@ -7,9 +7,12 @@ kernels.  This module reads the trace of a traced run's profiled half
 (``bench/out/<cell>.trace.json``), cuts the profiled window into pieces,
 each owned by the innermost range open on the host then (or by none), and
 gives each stage its wall time, the time within it in which the card ran
-a kernel, copy or set (busy) or nothing (idle), and the kernel launches
-the host made in it.  Telemetry is off in that half, so no span
-synchronises and the card runs as it does untraced.
+a kernel, copy or set (busy) or nothing (idle), the kernel launches the
+host made in it, and the device time of the work those calls launched
+(launched), matched call to kernel by the profiler's correlation id, so
+that a kernel that runs after its stage has closed still counts to it.
+Telemetry is off in that half, so no span synchronises and the card runs
+as it does untraced.
 
     python3 -m bench.harness.stages bench/out/<cell>.trace.json
 
@@ -59,14 +62,18 @@ def read(events: list) -> dict | None:
     """``events``: the trace's ``traceEvents``.  Returns ``window_s``,
     ``dispatches`` (the number of ``dispatch`` ranges), ``dispatch_launches``
     (launches that start inside one) and ``stages`` {stage: {``wall_s``,
-    ``busy_s``, ``idle_s``, ``launches``}} over the innermost-range pieces;
-    None when the trace holds no window or no ``repro_torch.*`` range."""
+    ``busy_s``, ``idle_s``, ``launches``, ``launched_s``}} over the
+    innermost-range pieces, ``launched_s`` being the whole device time of
+    the kernels, copies and sets whose correlation id a CUDA runtime call
+    made in the stage carries; None when the trace holds no window or no
+    ``repro_torch.*`` range."""
     win = [e for e in events if e.get("ph") == "X" and e.get("name") == WINDOW]
     if not win:
         return None
     w0 = float(win[0]["ts"])
     w1 = w0 + float(win[0]["dur"])
-    ranges, dev, launches = [], [], []
+    ranges, dev, launches, calls = [], [], [], []
+    work: dict = {}  # correlation id -> device seconds of what it launched
     for e in events:
         if e.get("ph") != "X":
             continue
@@ -78,11 +85,18 @@ def read(events: list) -> dict | None:
             if b > a:
                 ranges.append((a, b, name[len(PREFIX):]))
         elif cat in DEVICE_CATS:
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                work[corr] = work.get(corr, 0.0) + (b - a) * 1e-6
             a, b = max(a, w0), min(b, w1)
             if b > a:
                 dev.append((a, b))
-        elif cat == "cuda_runtime" and name in LAUNCHES and w0 <= a < w1:
-            launches.append(a)
+        elif cat == "cuda_runtime" and w0 <= a < w1:
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                calls.append((a, corr))
+            if name in LAUNCHES:
+                launches.append(a)
     if not ranges:
         return None
     pieces = _pieces(w0, w1, ranges)
@@ -98,16 +112,22 @@ def read(events: list) -> dict | None:
             on += min(b, busy[i][1]) - max(a, busy[i][0])
             i += 1
         rec = stages.setdefault(name, {"wall_s": 0.0, "busy_s": 0.0, "idle_s": 0.0,
-                                       "launches": 0})
+                                       "launches": 0, "launched_s": 0.0})
         rec["wall_s"] += (b - a) * 1e-6
         rec["busy_s"] += on * 1e-6
         rec["idle_s"] += (b - a - on) * 1e-6
     starts = [p[0] for p in pieces]
+
+    def owner(t):
+        return stages[pieces[max(0, bisect.bisect_right(starts, t) - 1)][2]]
+
+    for t, corr in calls:
+        owner(t)["launched_s"] += work.get(corr, 0.0)
     dispatch = sorted((a, b) for a, b, name in ranges if name == "dispatch")
     d_starts = [a for a, _ in dispatch]
     in_dispatch = 0
     for t in launches:
-        stages[pieces[max(0, bisect.bisect_right(starts, t) - 1)][2]]["launches"] += 1
+        owner(t)["launches"] += 1
         k = bisect.bisect_right(d_starts, t) - 1
         in_dispatch += k >= 0 and t < dispatch[k][1]
     return {"window_s": (w1 - w0) * 1e-6, "dispatches": len(dispatch),
@@ -176,14 +196,15 @@ def table(got: dict) -> str:
     lines = [f"window {got['window_s']:.3f} s, {got['dispatches']} dispatch ranges; "
              f"{got['dispatch_launches'] / n:.1f} launches a batch inside dispatch",
              f"{'stage':<16}{'wall ms':>10}{'busy ms':>10}{'idle ms':>10}{'idle %':>8}"
-             f"{'launches':>10}{'host us/launch':>16}"]
+             f"{'launches':>10}{'host us/launch':>16}{'launched ms':>13}"]
     for name, rec in sorted(got["stages"].items(), key=lambda kv: -kv[1]["wall_s"]):
         wall = rec["wall_s"]
         per_launch = f"{1e6 * wall / rec['launches']:.2f}" if rec["launches"] else "-"
         lines.append(f"{name:<16}{1e3 * wall / n:>10.3f}{1e3 * rec['busy_s'] / n:>10.3f}"
                      f"{1e3 * rec['idle_s'] / n:>10.3f}"
                      f"{100 * rec['idle_s'] / wall if wall else 0:>8.1f}"
-                     f"{rec['launches'] / n:>10.1f}{per_launch:>16}")
+                     f"{rec['launches'] / n:>10.1f}{per_launch:>16}"
+                     f"{1e3 * rec['launched_s'] / n:>13.3f}")
     return "\n".join(lines)
 
 

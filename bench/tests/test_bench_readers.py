@@ -36,19 +36,22 @@ def test_end_to_end_readers():
 def test_span_and_counter_readers():
     tel = {"spans": {"dispatch": [2.0, 100], "embed": [0.2, 100], "rerank": [0.3, 100],
                      "frozen_scan": [5.0, 100]},
-           "walls": [0.021] * 100, "batches": 100}
+           "walls": [0.021] * 100, "batches": 100, "attempted": 51_200, "failed": 200}
     run = _run(telemetry=tel, comparisons=np.array([1000, 1200]))
     assert read("traversal_ms.b512", run) == pytest.approx(15.0)
     assert read("server_host_ms.b512", run) == pytest.approx(1.0)
     assert read("server_host_ms.live", run) == pytest.approx(1.0)
     assert read("frozen_scan_ms.live", run) == pytest.approx(50.0)
     assert read("comparisons_per_query.b512", run) == pytest.approx(1100.0)
+    # answered queries over the calls' summed walls: 51 000 / 2.1 s
+    assert read("qps_telemetry.b512", run) == pytest.approx(51_000 / 2.1)
     assert read("phi_train_s", run) == 8.5
     # nothing to read: no value, never 0
     empty = _run()
     for name in ("traversal_ms.b512", "server_host_ms.b512", "server_host_ms.live",
                  "frozen_scan_ms.live", "comparisons_per_query.b512", "topk_roofline",
-                 "device_idle_pct.b512", "device_idle_pct.live", "qps", "qps.live"):
+                 "device_idle_pct.b512", "device_idle_pct.live", "qps", "qps.live",
+                 "qps_telemetry.b512"):
         assert read(name, empty) is None, name
 
 
